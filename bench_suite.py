@@ -8,8 +8,14 @@ metric for the driver; this suite covers the full grid:
   2. spheres 512x512, 16 spp, 4 bounces — forward Mrays/s + gradient check
   3. Rubik OBJ BVH 512x512 — forward + backward wall time
   4. high-poly procedural mesh (Airplane stand-in) — forward Mrays/s
-  5. rays/s scaling over an N-device mesh (real chips when available,
+  5. rays/s scaling over an N-device mesh (real devices when available,
      else the 8-virtual-device CPU mesh as a code-path check)
+  6-11. mesh backward, mesh scaling, large scene, textured headline,
+     inverse rendering, NEE emitters
+
+Every line names the device it ran on (platform, device_kind, count).
+Traversal follows ``mesh.default_method`` (the GPU kernel on a GPU, the
+dense sweep on the CPU); sizes follow ``SRT_SUITE_SMALL`` only.
 
 Usage: python bench_suite.py [config_numbers...]   (default: all)
        SRT_SUITE_SMALL=1 shrinks sizes for smoke runs.
@@ -26,6 +32,10 @@ SMALL = bool(os.environ.get("SRT_SUITE_SMALL"))
 
 
 def emit(**kw):
+    import jax
+    dev = jax.devices()[0]
+    kw.update(platform=dev.platform, device_kind=dev.device_kind,
+              device_count=len(jax.devices()))
     print(json.dumps(kw), flush=True)
 
 
@@ -118,7 +128,7 @@ def _rubik_scene():
     else:
         from srt_tpu.utils.procgen import rubik_grid
         mesh_data = rubik_grid()
-    return mesh_mod.upload(flatten_models([mesh_data], pad_to=128)), mesh_data
+    return mesh_mod.upload(flatten_models([mesh_data])), mesh_data
 
 
 def config3_rubik_fwd_bwd():
@@ -136,8 +146,7 @@ def config3_rubik_fwd_bwd():
                        look_at=(0.0, 1.0, -1.0))
     cfg = RenderConfig(max_depth=4, rr_bounces=0, spp=1)
     lights = model_scene_lights()
-    method = "pallas" if jax.default_backend() == "tpu" else "dense"
-    hit = mesh_mod.mesh_hit_fn(scene, method=method, ray_tile=8192)
+    method = mesh_mod.default_method()
 
     fwd = jax.jit(lambda s, k: pathtracer.render(
         mesh_mod.mesh_hit_fn(s, method=method, ray_tile=8192), lights, cam,
@@ -156,10 +165,7 @@ def config3_rubik_fwd_bwd():
 
 def config4_highpoly():
     """Headline scene through the PUBLIC API only: make_render_plan picks
-    the walk schedule, driver, and config toggles itself — this config
-    existing separately from bench.py keeps the library honest (the r4
-    judge found the suite's uniform-strategy path 42% slower than the
-    bench recipe; the recipe is now the library default)."""
+    the traversal strategy, driver, and config toggles itself."""
     import jax
 
     from srt_tpu.config import CameraConfig, RenderConfig
@@ -172,7 +178,7 @@ def config4_highpoly():
     rows = 40 if SMALL else 160   # ~2*rows*cols triangles
     cols = 60 if SMALL else 320   # 160x320 ~= 102k tris (Airplane stand-in)
     mesh_data = uv_sphere(rows, cols, radius=2.0)
-    scene = mesh_mod.upload(flatten_models([mesh_data], pad_to=128))
+    scene = mesh_mod.upload(flatten_models([mesh_data]))
     size = 128 if SMALL else 1024
     cam = CameraConfig(width=size, height=size, origin=(0.0, 1.0, 5.0),
                        look_at=(0.0, 0.0, 0.0))
@@ -224,11 +230,11 @@ def config5_scaling():
 
 
 def config6_mesh_bwd():
-    """Backward pass on the high-poly PALLAS scene: jax.grad of an image
-    loss w.r.t. materials AND shared vertex positions (the two BASELINE
-    gradient surfaces), on the production traversal path.  Gradients flow
-    through the exact refine of each winner (the kernel itself is a
-    stop-gradded candidate search)."""
+    """Backward pass on the high-poly scene: jax.grad of an image loss
+    w.r.t. materials AND shared vertex positions (the two BASELINE
+    gradient surfaces), on the platform's traversal strategy.  Gradients
+    flow through the exact refine of each winner (the GPU kernel itself
+    is a stop-gradded candidate search)."""
     import jax
     import jax.numpy as jnp
 
@@ -241,13 +247,12 @@ def config6_mesh_bwd():
 
     rows, cols = (12, 18) if SMALL else (160, 320)
     mesh_data = uv_sphere(rows, cols, radius=2.0)
-    scene = mesh_mod.upload(flatten_models([mesh_data], pad_to=128))
+    scene = mesh_mod.upload(flatten_models([mesh_data]))
     size = 32 if SMALL else 256
     cam = CameraConfig(width=size, height=size, origin=(0.0, 1.0, 5.0),
                        look_at=(0.0, 0.0, 0.0))
-    method = "pallas" if jax.default_backend() == "tpu" else "dense"
-    cfg = RenderConfig(max_depth=2, rr_bounces=0, spp=1,
-                       sort_bounces=(method == "pallas"))
+    method = mesh_mod.default_method()
+    cfg = RenderConfig(max_depth=2, rr_bounces=0, spp=1)
     lights = model_scene_lights()
 
     def loss(params, key):
@@ -314,68 +319,36 @@ def config7_mesh_scaling():
              vs_baseline=round(eff, 3))
 
 
-def config8_streamed_large_scene():
-    """Airplane-class scene BEYOND the VMEM-resident limit: ~500k
-    triangles force the HBM-streaming kernel (traversal_pallas
-    stream=True).  TPU: forward Mrays/s; CPU: a small smoke with
-    streaming forced on, so the code path stays covered everywhere."""
+def config8_large_scene():
+    """Airplane-class scene: ~503k triangles, forward Mrays/s through the
+    library fast path (the BVH walk reads any scene size from device
+    memory)."""
     import jax
     import numpy as np
 
     from srt_tpu.config import CameraConfig, RenderConfig
     from srt_tpu.models import mesh as mesh_mod
-    from srt_tpu.models import pathtracer
+    from srt_tpu.models.fastpath import make_render_plan
     from srt_tpu.scene import model_scene_lights
     from srt_tpu.utils.flatten import flatten_models
     from srt_tpu.utils.procgen import uv_sphere
 
-    on_tpu = jax.default_backend() == "tpu"
-    if on_tpu and not SMALL:
-        rows, cols = 360, 700                    # ~503k triangles
-        size = 512
-    else:
-        rows, cols = 12, 18
-        size = 32
+    rows, cols = (12, 18) if SMALL else (360, 700)   # ~503k triangles
+    size = 32 if SMALL else 512
     mesh_data = uv_sphere(rows, cols, radius=2.0)
-    scene = mesh_mod.upload(flatten_models([mesh_data], pad_to=128))
-    if on_tpu and not SMALL:
-        from srt_tpu.ops.traversal_pallas import STREAM_THRESHOLD_CLUSTERS
-        assert scene.woop.shape[0] > STREAM_THRESHOLD_CLUSTERS, \
-            "scene must exceed the VMEM-resident limit"
-    if not (on_tpu and not SMALL):
-        # CPU / smoke: correctness of the stream path (interpret-mode
-        # DMA), not throughput — stream-forced kernel vs the dense sweep.
-        import jax.numpy as jnp
-
-        from srt_tpu.ops.traversal_pallas import pallas_model_hit
-        from tests.test_mesh import random_rays
-        o, d = random_rays(512, seed=5)
-        t_max = jnp.full((512,), jnp.inf)
-        ts, is_, _, _ = pallas_model_hit(scene, 0, o, d, t_max, stream=True)
-        td, _, _, _ = mesh_mod._dense_model_hit(scene, 0, o, d, t_max)
-        agree = float(((np.asarray(is_) != -1)
-                       == np.isfinite(np.asarray(td))).mean())
-        emit(metric=f"config8 streamed {mesh_data.num_triangles}tri "
-                    f"hit agreement vs dense (smoke, stream forced)",
-             value=agree, unit="fraction", vs_baseline=float(agree > 0.995))
-        return
-
+    scene = mesh_mod.upload(flatten_models([mesh_data]))
     cam = CameraConfig(width=size, height=size, origin=(0.0, 1.0, 5.0),
                        look_at=(0.0, 0.0, 0.0))
     cfg = RenderConfig(max_depth=2, rr_bounces=0, spp=1)
-    lights = model_scene_lights()
-    # Library fast path: the walk schedule now streams pg2 late bounces
-    # (per-entry double-buffered DMA) on Airplane-class tables too (r5).
-    from srt_tpu.models.fastpath import make_render_plan
-    plan = make_render_plan(scene, lights, cam, cfg)
+    plan = make_render_plan(scene, model_scene_lights(), cam, cfg)
 
     (color, stats, overflow), dt = _timed(
         lambda k: plan.render(k), jax.random.key(0), reps=3)
     assert int(overflow) == 0, "compact schedule overflowed"
     rays = int(np.asarray(stats).sum())
     finite = bool(np.isfinite(np.asarray(color)).all())
-    emit(metric=f"config8 streamed {mesh_data.num_triangles}tri "
-                f"{size}x{size} fwd (HBM-streamed Woop, library fastpath)",
+    emit(metric=f"config8 large scene {mesh_data.num_triangles}tri "
+                f"{size}x{size} fwd (library fastpath)",
          value=round(rays / dt / 1e6, 2), unit="Mrays/s",
          vs_baseline=float(finite))
 
@@ -401,7 +374,7 @@ def config9_textured_headline():
     rows = 40 if SMALL else 160
     cols = 60 if SMALL else 320
     mesh_data = uv_sphere(rows, cols, radius=2.0)
-    flat = flatten_models([mesh_data], pad_to=128)
+    flat = flatten_models([mesh_data])
 
     # Procedural 512x512 diffuse map (checker x gradient) + 6-level mips.
     yy, xx = np.mgrid[0:512, 0:512].astype(np.float32) / 512.0
@@ -414,9 +387,8 @@ def config9_textured_headline():
     size = 128 if SMALL else 1024
     cam = CameraConfig(width=size, height=size, origin=(0.0, 1.0, 5.0),
                        look_at=(0.0, 0.0, 0.0))
-    method = "pallas" if jax.default_backend() == "tpu" else "dense"
-    cfg = RenderConfig(max_depth=4, rr_bounces=0, spp=1,
-                       sort_bounces=(method == "pallas"), ray_cones=True)
+    method = mesh_mod.default_method()
+    cfg = RenderConfig(max_depth=4, rr_bounces=0, spp=1, ray_cones=True)
     lights = model_scene_lights()
 
     from srt_tpu.camera import derive_viewport, generate_rays
@@ -468,7 +440,7 @@ def config10_inverse_rendering():
     * Rubik-scale vertex recovery through the EDGE-AWARE mesh renderer
       (silhouette gradients, ring search) — seconds/optimizer step;
     * 102k-tri vertex+material recovery through the plain path-space
-      pallas pipeline — seconds/optimizer step.
+      pipeline — seconds/optimizer step.
     """
     import jax
     import jax.numpy as jnp
@@ -483,13 +455,12 @@ def config10_inverse_rendering():
     from srt_tpu.utils.flatten import flatten_models
     from srt_tpu.utils.procgen import rubik_grid, uv_sphere
 
-    on_tpu = jax.default_backend() == "tpu"
     lights = model_scene_lights()
-    method = "pallas" if on_tpu else "dense"
+    method = mesh_mod.default_method()
 
     # --- (a) edge-aware vertex recovery, Rubik scale ---
     scene, _ = _rubik_scene()
-    size = 32 if (SMALL or not on_tpu) else 256
+    size = 32 if SMALL else 256
     cam = CameraConfig(width=size, height=size, origin=(0.0, 20.0, 20.0),
                        look_at=(0.0, 1.0, -1.0))
     cfg = RenderConfig(max_depth=2, rr_bounces=0, morton_order=False)
@@ -501,7 +472,7 @@ def config10_inverse_rendering():
                                       rings=1)
 
     target = render_ea(scene.positions, jax.random.key(7))
-    steps = 3 if (SMALL or not on_tpu) else 6
+    steps = 3 if SMALL else 6
     import time as _time
 
     def timed_run(render_fn, params0, target, key, lr):
@@ -523,15 +494,13 @@ def config10_inverse_rendering():
          value=round(dt, 3), unit="s/step", vs_baseline=float(ok))
 
     # --- (b) plain path-space vertex+material recovery, 102k tris ---
-    rows, cols = (12, 18) if (SMALL or not on_tpu) else (160, 320)
+    rows, cols = (12, 18) if SMALL else (160, 320)
     hi_scene = mesh_mod.upload(
-        flatten_models([uv_sphere(rows, cols, radius=2.0)],
-                       pad_to=128 if method == "pallas" else 1))
-    size_b = 32 if (SMALL or not on_tpu) else 256
+        flatten_models([uv_sphere(rows, cols, radius=2.0)]))
+    size_b = 32 if SMALL else 256
     cam_b = CameraConfig(width=size_b, height=size_b,
                          origin=(0.0, 1.0, 5.0), look_at=(0.0, 0.0, 0.0))
-    cfg_b = RenderConfig(max_depth=2, rr_bounces=0,
-                         sort_bounces=(method == "pallas"))
+    cfg_b = RenderConfig(max_depth=2, rr_bounces=0)
 
     def render_ps(params, key):
         diffuse, positions = params
@@ -576,8 +545,7 @@ def config11_nee_emitters():
     from srt_tpu.utils.flatten import flatten_models
     from srt_tpu.utils.obj_loader import MaterialDef
 
-    on_tpu = jax.default_backend() == "tpu"
-    size = 64 if (SMALL or not on_tpu) else 512
+    size = 64 if SMALL else 512
     lamp = procgen.cube(
         size=0.3, center=(0.9, 1.8, 0.6),
         material=MaterialDef(diffuse=(0.0, 0.0, 0.0),
@@ -587,13 +555,13 @@ def config11_nee_emitters():
         size=2.2, center=(0.0, -0.4, 0.0),
         material=MaterialDef(diffuse=(0.7, 0.7, 0.7),
                              specular=(0.2, 0.2, 0.2)))
-    scene = mesh_mod.upload(flatten_models([recv, lamp], pad_to=128))
+    scene = mesh_mod.upload(flatten_models([recv, lamp]))
     dim = Lights(position=jnp.asarray([[0.0, 500.0, 0.0]], jnp.float32),
                  color=jnp.asarray([[1.0, 1.0, 1.0]], jnp.float32),
                  intensity=jnp.asarray([1e-6], jnp.float32))
     cam = CameraConfig(width=size, height=size, origin=(0.0, 3.0, 2.5),
                        look_at=(0.0, 0.6, 0.0))
-    k_frames = 4 if (SMALL or not on_tpu) else 16
+    k_frames = 4 if SMALL else 16
     keys = jax.random.split(jax.random.key(11), k_frames)
 
     # Same composition for BOTH arms (full-width compact driver + the
@@ -605,14 +573,13 @@ def config11_nee_emitters():
     from srt_tpu.models.wavefront_compact import trace_image_compact
     from srt_tpu.ops.rng import KeyStream
 
-    method = "pallas" if on_tpu else "dense"
-    hit_fn = mesh_mod.mesh_hit_fn(scene, method=method)
+    hit_fn = mesh_mod.mesh_hit_fn(scene, method=mesh_mod.default_method())
     em = scene_emitters(scene)
     n = size * size
     out = {}
     for nee in (False, True):
         cfg = RenderConfig(max_depth=3, rr_bounces=0, nee=nee,
-                           sort_bounces=True, uniform_use_spec=True)
+                           uniform_use_spec=True)
         f = jax.jit(lambda k, cfg=cfg, nee=nee: trace_image_compact(
             hit_fn, dim, cam, cfg, KeyStream(k, n), (n, n, n),
             return_stats=True, emitters=em if nee else None))
@@ -651,13 +618,16 @@ ALL = {
     "5": config5_scaling,
     "6": config6_mesh_bwd,
     "7": config7_mesh_scaling,
-    "8": config8_streamed_large_scene,
+    "8": config8_large_scene,
     "9": config9_textured_headline,
     "10": config10_inverse_rendering,
     "11": config11_nee_emitters,
 }
 
 if __name__ == "__main__":
+    from srt_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     picks = sys.argv[1:] or sorted(ALL)
     failed = []
     for p in picks:

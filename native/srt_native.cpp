@@ -1,4 +1,4 @@
-// srt_native: C++ host-runtime kernels for the TPU path tracer.
+// srt_native: C++ host-runtime kernels for the path tracer.
 //
 // Native equivalents of the asset pipeline and BVH builder that the
 // reference implements in C++ (src/asset_utils/model_loader.cpp,

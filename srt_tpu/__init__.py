@@ -1,20 +1,20 @@
-"""srt_tpu — a TPU-native differentiable path tracer.
+"""srt_tpu — a differentiable wavefront path tracer in JAX, for NVIDIA GPUs.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the reference
+A JAX/XLA framework with the capabilities of the reference
 C++/OpenGL compute path tracer ``matteobir12/simple-ray-tracer`` (see
 SURVEY.md): GGX microfacet path tracing with RIS light sampling and Russian
 roulette, sphere and OBJ/MTL triangle-mesh scenes, CPU-built BVHs flattened
-for in-kernel traversal, and progressive sample accumulation — redesigned
-TPU-first:
+for per-ray traversal, and progressive sample accumulation — redesigned
+as batched array programs:
 
 * every render stage (ray gen, intersection/traversal, BRDF shading,
   accumulation) is a pure, differentiable JAX function over wavefront-style
   ray *batches* (``[N, ...]`` arrays), not a megakernel over texels;
-* the hot intersection kernels are Pallas TPU kernels over the flattened
-  BVH/triangle arrays (``srt_tpu.ops.traversal_pallas``);
+* the hot traversal is one CUDA kernel (one thread per ray, fixed-stack
+  BVH walk) called through ``jax.ffi`` (``srt_tpu.ops.traversal_cuda``);
 * random sampling is counter-based (threefry) instead of the reference's
   noise-texture hash (``shaders/raytrace_utils.glsl:28-89``);
-* scaling is a ``jax.sharding.Mesh`` over TPU devices with rays sharded and
+* scaling is a ``jax.sharding.Mesh`` over devices with rays sharded and
   the scene replicated (``srt_tpu.parallel``), not GL dispatch.
 
 Layout:

@@ -1,6 +1,6 @@
 """Camera: viewport derivation, batched ray generation, FPS-style controls.
 
-TPU-native analog of the reference camera stack: the GLSL ``GetCamera`` /
+Wavefront analog of the reference camera stack: the GLSL ``GetCamera`` /
 ``GetRay`` (shaders/raytrace_compute.glsl:47-90) and the host-side FPS camera
 (src/raytracer/camera.cpp — yaw/pitch basis, WASD movement, pitch clamp,
 reset poses).  Instead of one ray per shader invocation, ``generate_rays``

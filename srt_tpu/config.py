@@ -49,7 +49,7 @@ class RenderConfig:
 
     ``max_depth``/``rr_bounces``: the reference bounce loop
     (raytrace_compute.glsl:224-290) is ``while(true)`` with ``maxDepth`` free
-    bounces then Russian roulette forever.  TPU needs static shapes, so we run
+    bounces then Russian roulette forever.  XLA needs static shapes, so we run
     ``max_depth + rr_bounces`` masked iterations; paths still alive after that
     are terminated as if they missed (throughput * sky added, see
     ``sky_always``).
@@ -82,7 +82,6 @@ class RenderConfig:
     # every material has use_spec; callers assert nothing — it is the
     # caller's promise).  Off by default for sphere-scene generality.
     uniform_use_spec: bool = False
-    ray_tile: int = 2048  # rays per Pallas kernel tile
     # Trace rays in Morton (Z-order) pixel order so kernel tiles cover
     # compact pixel blocks (the analog of the reference's 8x8 workgroups).
     # Bit-exact either way — the RNG stream is permuted with the rays
@@ -91,9 +90,9 @@ class RenderConfig:
     # Re-sort the wavefront between bounces (dead-last, origin Morton
     # cell, direction octant) so kernel tiles stay coherent after the
     # primary bounce.  Bit-identical output (the RNG slots follow each
-    # pixel); costs one u32 argsort + gathers per bounce, a large net win
-    # for the Pallas cluster kernel on big scenes.  Off by default: the
-    # dense/CPU paths gain nothing.
+    # pixel); costs one u32 argsort + gathers per bounce; coherent rays
+    # walk the BVH with less divergence.  Off by default: the dense/CPU
+    # paths gain nothing (models/fastpath.SORT_DEFAULT per strategy).
     sort_bounces: bool = False
     # Re-sort each SHADOW batch by (dead-last, picked light, origin
     # Morton cell) before the any-hit trace, from this bounce index on
@@ -115,7 +114,7 @@ class RenderConfig:
     # small emitters (tests/test_nee.py).  Off by default: bit-exact
     # legacy behavior and oracle parity.
     nee: bool = False
-    # Ray-cone footprint tracking for mip selection (the TPU analog of
+    # Ray-cone footprint tracking for mip selection (the wavefront analog of
     # the GL driver's derivative-driven mipmapped samplers,
     # include/asset_utils/gpu_texture.h:39-53): each path carries a cone
     # (width, spread); width grows by t*spread per segment, spread widens

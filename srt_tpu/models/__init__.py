@@ -1,1 +1,1 @@
-"""Renderers: the TPU wavefront path tracer and the CPU oracle."""
+"""Renderers: the wavefront path tracer and the CPU oracle."""

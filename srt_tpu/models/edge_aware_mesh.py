@@ -62,6 +62,7 @@ from srt_tpu.ops.vec import bc
 from srt_tpu.scene import Lights
 
 BIG = 3.0e37
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _primary_winner(scene: MeshScene, origins, dirs, t_min, method: str):
@@ -74,10 +75,9 @@ def _primary_winner(scene: MeshScene, origins, dirs, t_min, method: str):
     best_i = jnp.full((n,), -1, jnp.int32)
     best_b = jnp.zeros((n,), jnp.int32)
     for b in range(scene.num_models):
-        if method == "pallas":
-            from srt_tpu.ops.traversal_pallas import pallas_model_hit
-            t, i, _, _ = pallas_model_hit(scene, b, origins, dirs, best_t,
-                                          refine=False)
+        if method in mesh_mod.CANDIDATE_METHODS:
+            t, i = mesh_mod.candidate_model_hit(scene, method)(
+                scene, b, origins, dirs, best_t)
         else:
             t, i, _, _ = mesh_mod._dense_model_hit(scene, b, origins, dirs,
                                                    best_t)
@@ -201,8 +201,8 @@ def silhouette_sdf_global(scene: MeshScene, b: int, o_m, d_m, t_hit,
 
     d_t = d_m.T                                   # [N, 3]
     o_t = o_m.T
-    f_a = d_t @ n_a                               # [N, E]
-    f_b = d_t @ n_b
+    f_a = jnp.dot(d_t, n_a, precision=HIGHEST)    # [N, E]
+    f_b = jnp.dot(d_t, n_b, precision=HIGHEST)
     sil = (e_tb[None, :] < 0) | (f_a * f_b <= 0.0)
 
     # Ray-line to edge-SEGMENT distance: |A + s B| minimized over

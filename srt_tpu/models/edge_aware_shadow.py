@@ -45,6 +45,8 @@ from srt_tpu.models.mesh import MeshScene, transform_rays
 from srt_tpu.ops import vec
 from srt_tpu.ops.vec import bc
 
+HIGHEST = jax.lax.Precision.HIGHEST
+
 BIG = 3.0e37
 
 
@@ -101,8 +103,8 @@ def _silhouette_edge_dist(scene: MeshScene, b: int, o_m, dn, t_lo, t_hi,
 
     d_t = dn.T                                    # [N, 3]
     o_t = o_m.T
-    f_a = d_t @ n_a.T                             # [N, E]
-    f_b = d_t @ n_b.T
+    f_a = jnp.dot(d_t, n_a.T, precision=HIGHEST)  # [N, E]
+    f_b = jnp.dot(d_t, n_b.T, precision=HIGHEST)
     sil = (jnp.asarray(e_tb)[None, :] < 0) | (f_a * f_b <= 0.0)
 
     e_vec = p1 - p0

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -84,7 +85,8 @@ def build_emitters(scene, emit_idx: np.ndarray) -> Emitters:
         # frames are world->model: x_m = R x_w + t  =>  x_w = R^-1 (x_m - t)
         fr = scene.frames[b]
         r_inv = jnp.linalg.inv(fr[:3, :3])
-        return (pts_m - fr[:3, 3][None, :]) @ r_inv.T
+        return jnp.dot(pts_m - fr[:3, 3][None, :], r_inv.T,
+                       precision=jax.lax.Precision.HIGHEST)
 
     v0 = v1 = v2 = None
     for b in range(scene.num_models):

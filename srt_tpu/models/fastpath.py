@@ -1,145 +1,57 @@
-"""Library-default fast render plan: the measured per-bounce traversal
-strategy, packaged as public API.
+"""Library-default fast render plan: the fastest measured full-frame
+composition, packaged as public API.
 
-Round 4 found the fastest frame composition experimentally — a per-bounce,
-per-query-kind walk schedule (tiled supercluster walk for coherent
-primaries; the per-group ``pg2:G:W`` walk for incoherent later bounces and
-shadow rays) driving the width-compacted wavefront driver
-(models/wavefront_compact.py) — but it lived only in bench.py as env-var
-strings, so ``pathtracer.render(mesh_hit_fn(scene))`` got the slow
-uniform-strategy scan.  This module promotes that composition to the
-library default: ``make_render_plan(scene, lights, cam, cfg)`` returns a
-compiled plan whose ``render(key)`` is the fastest known full-frame path
-for the scene, with the walk schedule chosen by the measured heuristics
-(overridable, still just strings).
+``make_render_plan(scene, lights, cam, cfg)`` returns a compiled plan
+whose ``render(key)`` drives the width-compacted wavefront driver
+(models/wavefront_compact.py) with the platform's traversal strategy
+(``mesh.default_method``) and the measured config toggles, so the number
+the headline bench measures is what any user of the public API gets.
 
-The heuristics (v5e measurements, ROADMAP r4):
-
-* coherent primaries: the tiled walk at a 256-ray kernel tile — its
-  dynamic shrinking-t gate beats static per-group footprints when the
-  8-ray groups are as coherent as the rays themselves;
-* incoherent bounces: the per-group walk with shrinking group size
-  (``pg2:128:4`` for bounce 2, ``pg2:32:4`` / ``pg2:16:4`` deeper) —
-  measured 1.8-1.9x over the tiled walk on bounce 3-4 closest hits;
-* shadow rays: their own schedule (short clipped segments, different
-  footprints): ``pg2:128:4`` early, ``pg2:64:4`` late;
-* small scenes (<= 8 superclusters): culling cannot help; everything
-  stays on the tiled walk at the kernel's default tile;
-* HBM-streamed scenes (> ~218k triangles): same schedule — the r5 pg2
-  walk streams each listed super's Woop block with per-entry
-  double-buffered DMA (``traversal_pallas`` stream mode), so the
-  Airplane-class regime gets the same late-bounce mechanism.
-
-Reference analog: the per-thread early-out economics of ``Intersects``
-(/root/reference/shaders/ray_intersects.glsl:99-133) — the schedule is how
-the 8x128-lane TPU recovers per-ray-granularity traversal cost that SIMT
-threads get for free.
+Small scenes (<= ``SMALL_SCENE_TRIS`` triangles) on a candidate-search
+strategy run the ``lax.scan`` integrator instead: when traversal is cheap
+the compacted driver's many small per-width fusions cost more than they
+save.  The threshold is carried over from the first backend's
+measurement and is to be re-measured on the GPU (ROADMAP).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Optional
 
 import jax
-import numpy as np
 
 from srt_tpu.config import CameraConfig, RenderConfig
 from srt_tpu.scene import Lights
 
-
-def parse_walk(tok: str):
-    """Parse one walk token -> (binned_mode, kernel_tile).
-
-    Tokens: ``"tiled"`` | ``"tiled@N"`` (kernel tile N) | ``"binned"`` |
-    ``"pg2:G"`` | ``"pg2:G:W"`` (G-ray groups, W-wide evals).
-    """
-    tok = tok.strip()
-    kt = 0
-    if tok.startswith("tiled@"):
-        kt = int(tok.split("@", 1)[1])
-        tok = "tiled"
-    if tok == "tiled":
-        return False, kt
-    if tok == "binned":
-        return True, kt
-    if tok.startswith("pg2:") or tok == "pg":
-        return tok, kt
-    raise ValueError(f"unknown walk token: {tok!r}")
+# Scenes up to this many (padded) triangles take the scan integrator.
+SMALL_SCENE_TRIS = 16384
 
 
-def _pg_group(mode) -> int:
-    if isinstance(mode, str) and mode.startswith("pg2:"):
-        return int(mode.split(":")[1])
-    return 0
-
-
-def parse_walks(spec: str, n_bounces: int):
-    """Parse a comma list of walk tokens, extending the last entry to
-    deeper bounces.  Returns a list of (mode, kernel_tile) pairs."""
-    out = [parse_walk(t) for t in spec.split(",")]
-    while len(out) < n_bounces:
-        out.append(out[-1])
-    return out[:n_bounces]
-
-
-def default_walks(scene, n_bounces: int):
-    """The measured default walk schedule for a scene (see module doc).
-    Returns (walks, walks_shadow) lists of (mode, kernel_tile)."""
-    from srt_tpu.ops.traversal_pallas import SUPER
-
-    n_supers = ((scene.woop.shape[0] + SUPER - 1) // SUPER
-                if scene.woop is not None else 1)
-    if n_supers <= 8:
-        # Tiny scenes: one super covers the scene; culling cannot help and
-        # per-group walks only add fixed cost.
-        walks = [parse_walk("tiled")] * n_bounces
-        return walks, list(walks)
-    # r5 re-tune (cone-major bounce sort, tools/micro_pg2_split.py):
-    # bounce-4 optimum moved from pg2:16 to pg2:32 (direction-sorted
-    # groups stay coherent at twice the size).
-    walks = parse_walks("tiled@256,pg2:128:4,pg2:32:4,pg2:32:4", n_bounces)
-    walks_sh = parse_walks("pg2:128:4,pg2:32:4,pg2:32:4,pg2:32:4",
-                           n_bounces)
-    return walks, walks_sh
-
-
-def build_hit_fns(scene, walks, walks_shadow, method: str = "pallas"):
-    """Per-bounce hit fns for the walk schedule (deduplicated: equal
-    (closest, shadow, tile) triples share one compiled hit fn).
-
-    Validates up front that every pg2 group evenly divides its bounce's
-    kernel tile — the paired closest/shadow specs share one launch tile,
-    and a bad combination otherwise only dies in a deep kernel assert
-    (r4 advisor finding).
-    """
+def plan_hit_fn(scene, method: str):
+    """The plan's hit fn for ``method`` (dense sweeps in 8192-ray tiles to
+    bound its [tile, T] working set)."""
     from srt_tpu.models import mesh as mesh_mod
-    from srt_tpu.ops.traversal_pallas import DEFAULT_TILE, SUPER
 
-    if method != "pallas":
-        return mesh_mod.mesh_hit_fn(scene, method=method, ray_tile=8192)
-    n_supers = ((scene.woop.shape[0] + SUPER - 1) // SUPER
-                if scene.woop is not None else 1)
-    adaptive_tile = 128 if n_supers > 8 else DEFAULT_TILE
-    cache = {}
-    fns = []
-    for (m, kt), (ms, kts) in zip(walks, walks_shadow):
-        kt = kt or kts
-        eff = kt or adaptive_tile       # mesh_hit_fn's kernel_tile default
-        for mode in (m, ms):
-            g = _pg_group(mode)
-            if g and eff % g != 0:
-                raise ValueError(
-                    f"pg2 group {g} does not divide kernel tile {eff} "
-                    f"(walk {mode!r}); pick a tile that is a multiple "
-                    f"of every pg2 group it is paired with")
-        key = (m, ms, kt)
-        if key not in cache:
-            cache[key] = mesh_mod.mesh_hit_fn(
-                scene, method=method, binned=m, binned_anyhit=ms,
-                kernel_tile=kt)
-        fns.append(cache[key])
-    return fns
+    return mesh_mod.mesh_hit_fn(
+        scene, method=method, ray_tile=8192 if method == "dense" else 0)
+
+
+def use_scan_integrator(scene, method: str) -> bool:
+    """Small scene on a candidate strategy: the scan integrator wins."""
+    from srt_tpu.models import mesh as mesh_mod
+
+    return (method in mesh_mod.CANDIDATE_METHODS
+            and scene.tri_v0.shape[0] <= SMALL_SCENE_TRIS)
+
+
+def plan_config(cfg: RenderConfig) -> RenderConfig:
+    """The measured-default toggles: the all-specular shading shortcut
+    (mesh material conversion sets use_spec for every triangle,
+    raytrace_utils.glsl:173).  The bounce and late-shadow re-sorts stay as
+    the caller set them; ``RenderConfig`` leaves them off, the faster
+    choice for the kernel's headline frame on the H100 (PERF.md)."""
+    return dataclasses.replace(cfg, uniform_use_spec=True)
 
 
 @dataclasses.dataclass
@@ -161,55 +73,31 @@ class RenderPlan:
 
 def make_render_plan(scene, lights: Lights, cam: CameraConfig,
                      cfg: Optional[RenderConfig] = None, key=None,
-                     walks=None, walks_shadow=None,
                      method: Optional[str] = None) -> RenderPlan:
     """Build the fastest known full-frame render plan for a mesh scene.
 
-    Chooses the traversal method (pallas on TPU), the per-bounce walk
-    schedule (``default_walks`` unless ``walks``/``walks_shadow`` strings
-    override), enables the measured-default config toggles (Morton
-    primary order, bounce re-sort, the all-specular shading shortcut —
-    mesh material conversion sets use_spec for every triangle,
-    raytrace_utils.glsl:173), probes one frame to discover the compacted
-    width schedule, and returns a jitted plan.
+    Chooses the traversal method (``mesh.default_method`` unless given),
+    enables the measured-default config toggles (``plan_config``), probes
+    one frame to discover the compacted width schedule, and returns a
+    jitted plan.
 
     The probe frame costs one extra compile + trace; the schedule
     transfers across frames and camera jitter (path death is a property
     of scene coverage, not the RNG key), and ``render`` reports overflow
     if it ever stops holding.
     """
+    from srt_tpu.models import mesh as mesh_mod
     from srt_tpu.models.wavefront_compact import (discover_schedule,
                                                   trace_image_compact)
     from srt_tpu.ops.rng import KeyStream
 
     if method is None:
-        method = "pallas" if jax.default_backend() == "tpu" else "dense"
-    cfg = cfg or RenderConfig(max_depth=4, rr_bounces=0)
-    on_pallas = method == "pallas"
-    cfg = dataclasses.replace(
-        cfg, sort_bounces=on_pallas and cfg.max_depth + cfg.rr_bounces > 1,
-        uniform_use_spec=True)
-    if on_pallas and cfg.sort_shadows_from is None:
-        # Re-sort late shadow batches by (light, origin cell): RIS picks
-        # lights per ray, and a per-group walk otherwise pays the union
-        # footprint of segments toward up to six lights.  Measured (r5):
-        # bounce-3/4 shadow passes 43.8/27.8 -> 12.6/6.6 ms; from bounce
-        # 2 on (earlier shadow batches are beam-coherent enough that the
-        # argsort + gather overhead loses money).
-        cfg = dataclasses.replace(cfg, sort_shadows_from=2)
+        method = mesh_mod.default_method()
+    cfg = plan_config(cfg or RenderConfig(max_depth=4, rr_bounces=0))
     n_bounces = cfg.max_depth + cfg.rr_bounces
     if key is None:
         key = jax.random.key(0)
-
-    if on_pallas:
-        dw, dws = default_walks(scene, n_bounces)
-        if walks is not None:
-            dw = parse_walks(walks, n_bounces)
-        if walks_shadow is not None:
-            dws = parse_walks(walks_shadow, n_bounces)
-        hit_fns = build_hit_fns(scene, dw, dws, method=method)
-    else:
-        hit_fns = build_hit_fns(scene, None, None, method=method)
+    hit_fn = plan_hit_fn(scene, method)
 
     emitters = None
     if cfg.nee:
@@ -217,25 +105,18 @@ def make_render_plan(scene, lights: Lights, cam: CameraConfig,
         emitters = scene_emitters(scene)
 
     n = cam.width * cam.height * cfg.spp
-    from srt_tpu.ops.traversal_pallas import SUPER
-    n_supers = ((scene.woop.shape[0] + SUPER - 1) // SUPER
-                if scene.woop is not None else 1)
-    if on_pallas and n_supers <= 8 and cfg.spp == 1 and emitters is None:
-        # Small scenes: the compacted unrolled driver measured 3.3x
-        # SLOWER than the lax.scan integrator on this backend (Rubik
-        # 1024x800: 580 vs 174 ms — the unrolled per-width program
-        # fragments into hundreds of small fusions whose fixed costs
-        # dominate when the traversal itself is cheap).  The scan body
-        # compiles once and reuses; schedule is trivially full-width.
+    if use_scan_integrator(scene, method) and cfg.spp == 1 \
+            and emitters is None:
+        # The scan body compiles once and reuses; the schedule is
+        # trivially full-width.
         import jax.numpy as jnp
 
         from srt_tpu.models.pathtracer import trace_image_sample
         scfg = dataclasses.replace(cfg, sort_bounces=False)
-        hit_one = hit_fns[0] if isinstance(hit_fns, list) else hit_fns
 
         def scan_frame(k):
             img, stats = trace_image_sample(
-                hit_one, lights, cam, scfg, KeyStream(k, n),
+                hit_fn, lights, cam, scfg, KeyStream(k, n),
                 return_stats=True)
             return img, stats, jnp.int32(0)
 
@@ -243,9 +124,9 @@ def make_render_plan(scene, lights: Lights, cam: CameraConfig,
         schedule = (n,) * n_bounces
         return RenderPlan(cam=cam, cfg=scfg, schedule=schedule, _fn=fn)
 
-    schedule = discover_schedule(hit_fns, lights, cam, cfg, key,
+    schedule = discover_schedule(hit_fn, lights, cam, cfg, key,
                                  emitters=emitters)
     fn = jax.jit(lambda k: trace_image_compact(
-        hit_fns, lights, cam, cfg, KeyStream(k, n), schedule,
+        hit_fn, lights, cam, cfg, KeyStream(k, n), schedule,
         return_stats=True, emitters=emitters))
     return RenderPlan(cam=cam, cfg=cfg, schedule=schedule, _fn=fn)

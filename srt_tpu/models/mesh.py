@@ -1,51 +1,90 @@
 """Triangle-mesh scenes: device pytree, traversal strategies, shading hookup.
 
-The TPU-side counterpart of the reference's model path: ``CheckHit``'s
+The device-side counterpart of the reference's model path: ``CheckHit``'s
 per-model frame transform + BVH traversal (raytrace_compute.glsl:143-161 ->
 ``Intersects``, ray_intersects.glsl:99-133) and the OBJ-material conversion
 ``TriangleToSupportedMat`` (raytrace_utils.glsl:140-175).
 
 Traversal strategies over the flattened node/triangle arrays:
 
-* ``"dense"``  — every ray against every triangle, ``[tile, T]`` broadcast
-  Moller-Trumbore on the VPU.  No divergence, no gather; the fastest choice
-  for small-to-medium meshes and the correctness baseline for everything.
-* ``"bvh"``    — classic per-ray stack traversal (``lax.while_loop`` with a
-  fixed-size stack, vmapped).  Matches the reference algorithm one-to-one;
-  used for CPU validation and as the semantics spec for the Pallas kernel.
-* ``"pallas"`` — the production TPU kernel (ops/traversal_pallas.py):
-  BVH-culled cluster intersection over ray tiles.
+* ``"dense"`` — every ray against every triangle, ``[tile, T]`` broadcast
+  Moller-Trumbore.  No divergence, no gather; the CPU default and the
+  correctness baseline for everything.
+* ``"bvh"``   — classic per-ray stack traversal (``lax.while_loop`` with a
+  fixed-size stack, vmapped).  Matches the reference algorithm one-to-one
+  in plain XLA; the semantic reference for the GPU kernel.
+* ``"cuda"``  — the GPU kernel (ops/traversal_cuda.py): the same per-ray
+  stack walk, one thread per ray, nearer child first.
 
-All strategies return identical hits (tested).  Rays are processed in
-static tiles so memory stays bounded; the whole thing is differentiable
-w.r.t. triangle vertices, frames, and material tables.
+``default_method`` picks one from the platform.  All strategies return the
+same hits up to exact-t ties (tested).  ``"bvh"`` and ``"cuda"`` are
+candidate searches on ``stop_gradient``'d operands; the winner's exact
+(t, u, v) is re-derived by a differentiable Moller-Trumbore refine, so the
+whole thing is differentiable w.r.t. triangle vertices, frames, and
+material tables under every strategy.
 """
 
 from __future__ import annotations
 
-import functools
+import dataclasses
 from typing import Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from srt_tpu.models.pathtracer import Hit, HitFn
 from srt_tpu.ops import intersect
+from srt_tpu.ops import traversal_cuda
 from srt_tpu.ops import vec
 from srt_tpu.scene import Materials
 from srt_tpu.utils.flatten import FlatScene
 
 INF = jnp.float32(jnp.inf)
 MISS = jnp.int32(-1)
+HIGHEST = jax.lax.Precision.HIGHEST
 
 # ``TriangleToSupportedMat`` constants (raytrace_utils.glsl:169-173).
 MESH_METALNESS = 0.1
 ROUGHNESS_EPS = 1e-7
 
+# Strategies that return a candidate (t, triangle) and leave the exact
+# (t, u, v) to the shared refine in ``mesh_hit_fn``.
+CANDIDATE_METHODS = ("bvh", "cuda")
+# The GPU strategy, chosen by measurement on an H100 (PERF.md,
+# "Traversal on the H100").
+GPU_METHOD = "cuda"
 
-@struct.dataclass
+
+def default_method() -> str:
+    """The traversal strategy for the platform JAX runs on: the GPU
+    kernel on a GPU, the dense sweep on the CPU.  Any other platform
+    raises — there is no silent fallback."""
+    platform = jax.default_backend()
+    if platform == "gpu":
+        return GPU_METHOD
+    if platform == "cpu":
+        return "dense"
+    raise RuntimeError(f"no traversal strategy for platform {platform!r}")
+
+
+def _static(default):
+    return dataclasses.field(default=default, metadata={"static": True})
+
+
+def _pytree_dataclass(cls):
+    """Frozen dataclass registered as a pytree: fields made with
+    ``_static`` are trace-time metadata, the rest are leaves."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    fields = dataclasses.fields(cls)
+    cls.replace = lambda self, **kw: dataclasses.replace(self, **kw)
+    return jax.tree_util.register_dataclass(
+        cls,
+        data_fields=[f.name for f in fields if not f.metadata.get("static")],
+        meta_fields=[f.name for f in fields if f.metadata.get("static")])
+
+
+@_pytree_dataclass
 class MeshScene:
     """Device-resident flattened multi-model scene.
 
@@ -74,6 +113,15 @@ class MeshScene:
     mat_specular_ex: jnp.ndarray  # [M]
     mat_use_texture: jnp.ndarray  # [M] bool
     mat_tex_index: jnp.ndarray    # [M] int32
+    # GPU kernel tables (ops/traversal_cuda.pack_tables): 32-byte node
+    # records and 48-byte triangle records in BVH order.
+    bvh_nodes: jnp.ndarray     # [Nn, 8] f32
+    bvh_tris: jnp.ndarray      # [T, 12] f32
+    # Node-refit topology (host-precomputed, see ``refit_accel``): the
+    # leaf owning each triangle (Nn for padding triangles), and internal
+    # nodes ordered deepest level first.
+    tri_leaf: jnp.ndarray        # [T] int32
+    refit_internal: jnp.ndarray  # [Ni] int32
     atlas: Optional[jnp.ndarray] = None  # [H, W, 3] texture atlas or None
     atlas_rects: Optional[jnp.ndarray] = None  # [K, 4] (x, y, w, h) in texels
     atlas_mip_rects: Optional[jnp.ndarray] = None  # [K, L, 4] mip chain rects
@@ -81,11 +129,6 @@ class MeshScene:
     # packed row gather per bilinear tap instead of four 2D gathers —
     # forward-render fast path; None when differentiating w.r.t. texels.
     atlas_quad: Optional[jnp.ndarray] = None
-    # Pallas cluster-kernel tables (ops/traversal_pallas.py); present when
-    # the scene was flattened with pad_to=128.
-    woop: Optional[jnp.ndarray] = None         # [13, T]
-    cluster_min: Optional[jnp.ndarray] = None  # [C, 3]
-    cluster_max: Optional[jnp.ndarray] = None  # [C, 3]
     # Shared-vertex view for geometry optimization: tri_v0/v1/v2 above are
     # the pre-gathered per-corner duplicates (model_loader.cpp:296-331);
     # ``with_positions`` re-derives them from this buffer so vertex
@@ -101,35 +144,53 @@ class MeshScene:
     # the chain; 0 disables (base level only).  A path tracer has no screen
     # derivatives, so this is the standard distance heuristic — set scale
     # ~ texels-per-world-unit / viewport-rays-per-world-unit for the scene.
-    mip_lod_scale: float = struct.field(pytree_node=False, default=0.0)
-    model_first_node: tuple = struct.field(pytree_node=False, default=(0,))
-    model_first_tri: tuple = struct.field(pytree_node=False, default=(0,))
-    model_tri_count: tuple = struct.field(pytree_node=False, default=(0,))
-    model_padded_tri_count: tuple = struct.field(pytree_node=False, default=(0,))
-    num_triangles: int = struct.field(pytree_node=False, default=0)
-    stack_depth: int = struct.field(pytree_node=False, default=34)
-    max_leaf: int = struct.field(pytree_node=False, default=2)
-    # Set by refit_accel: the Pallas/dense tables track the moved vertices
-    # but the BVH *node* bounds do not; the "bvh" strategy refuses to run
-    # on such a scene (it would silently return wrong hits).
-    stale_node_bounds: bool = struct.field(pytree_node=False, default=False)
+    mip_lod_scale: float = _static(0.0)
+    model_first_node: tuple = _static((0,))
+    model_first_tri: tuple = _static((0,))
+    model_tri_count: tuple = _static((0,))
+    model_padded_tri_count: tuple = _static((0,))
+    num_triangles: int = _static(0)
+    stack_depth: int = _static(34)
+    max_leaf: int = _static(2)
+    # Sizes of the levels of ``refit_internal``, deepest first.
+    refit_level_sizes: tuple = _static(())
 
     @property
     def num_models(self) -> int:
         return len(self.model_first_node)
 
 
+def _refit_topology(scene: FlatScene):
+    """Host precompute for ``refit_accel``: (tri_leaf [T], internal nodes
+    deepest level first [Ni], level sizes).  Depth is per model (from its
+    root); models are independent, so one level list serves them all."""
+    n_nodes = scene.node_first.shape[0]
+    n_tris = scene.tri_v0.shape[0]
+    first = scene.node_first.astype(np.int64)
+    count = scene.node_count.astype(np.int64)
+    tri_leaf = np.full(n_tris, n_nodes, np.int32)
+    leaves = np.nonzero(count > 0)[0]
+    offsets = np.arange(count[leaves].sum()) - np.repeat(
+        np.cumsum(count[leaves]) - count[leaves], count[leaves])
+    tri_leaf[np.repeat(first[leaves], count[leaves]) + offsets] = np.repeat(
+        leaves, count[leaves])
+    depth = np.full(n_nodes, -1, np.int64)
+    depth[np.asarray(scene.model_first_node, np.int64)] = 0
+    for ni in range(n_nodes):       # children always follow their parent
+        if count[ni] == 0:
+            depth[first[ni]] = depth[first[ni] + 1] = depth[ni] + 1
+    internal = np.nonzero(count == 0)[0]
+    order = internal[np.argsort(-depth[internal], kind="stable")]
+    sizes = np.unique(-depth[order], return_counts=True)[1]
+    return tri_leaf, order.astype(np.int32), tuple(int(x) for x in sizes)
+
+
 def upload(scene: FlatScene, atlas=None, atlas_rects=None,
            atlas_mip_rects=None, mip_lod_scale: float = 0.0,
            quad_pack: bool = True) -> MeshScene:
     """Host FlatScene -> device MeshScene (the ``glBufferData`` moment,
-    gpu_loader.cpp:142-182; here a plain pytree of jnp arrays).
-
-    When the scene is cluster-aligned (flatten_models pad_to=128) the Woop
-    transform table and cluster AABBs for the Pallas kernel are built here.
-    """
-    import numpy as _np
-
+    gpu_loader.cpp:142-182; here a plain pytree of jnp arrays), with the
+    GPU kernel's packed tables and the node-refit topology."""
     # Quad-packed atlas (r5): the forward texture fast path; skip with
     # quad_pack=False when the caller will differentiate w.r.t. texels
     # (the quad table is a host-built copy, not a traced view).
@@ -137,9 +198,9 @@ def upload(scene: FlatScene, atlas=None, atlas_rects=None,
     if quad_pack and atlas is not None and atlas_rects is not None:
         from srt_tpu.utils.atlas import build_quad_table
         atlas_quad = jnp.asarray(build_quad_table(
-            _np.asarray(atlas), _np.asarray(atlas_rects),
+            np.asarray(atlas), np.asarray(atlas_rects),
             None if atlas_mip_rects is None
-            else _np.asarray(atlas_mip_rects)))
+            else np.asarray(atlas_mip_rects)))
 
     t_total = scene.tri_v0.shape[0]
     firsts = [int(x) for x in scene.model_first_tri]
@@ -147,23 +208,10 @@ def upload(scene: FlatScene, atlas=None, atlas_rects=None,
         (firsts[i + 1] if i + 1 < len(firsts) else t_total) - firsts[i]
         for i in range(len(firsts))
     )
-
-    woop = cmin = cmax = None
-    from srt_tpu.ops.traversal_pallas import CLUSTER, build_clusters, build_woop
-    if t_total > 0 and t_total % CLUSTER == 0 and all(
-        c % CLUSTER == 0 for c in padded_counts
-    ):
-        w = build_woop(scene.tri_v0, scene.tri_v1, scene.tri_v2)  # [13, T]
-        # Kernel layout: [C, 16, 128] — per-cluster blocks, rows padded to
-        # a full sublane tile (see traversal_pallas._intersect_kernel).
-        w16 = _np.zeros((16, w.shape[1]), _np.float32)
-        w16[:13] = w
-        c_total = t_total // CLUSTER
-        woop = jnp.asarray(
-            w16.reshape(16, c_total, CLUSTER).transpose(1, 0, 2).copy()
-        )
-        lo, hi = build_clusters(scene.tri_v0, scene.tri_v1, scene.tri_v2)
-        cmin, cmax = jnp.asarray(lo), jnp.asarray(hi)
+    bvh_nodes, bvh_tris = traversal_cuda.pack_tables(
+        scene.node_min, scene.node_max, scene.node_first, scene.node_count,
+        scene.tri_v0, scene.tri_v1, scene.tri_v2)
+    tri_leaf, refit_internal, level_sizes = _refit_topology(scene)
 
     return MeshScene(
         frames=jnp.asarray(scene.frames),
@@ -187,15 +235,16 @@ def upload(scene: FlatScene, atlas=None, atlas_rects=None,
         mat_specular_ex=jnp.asarray(scene.mat_specular_ex),
         mat_use_texture=jnp.asarray(scene.mat_use_texture),
         mat_tex_index=jnp.asarray(scene.mat_tex_index),
+        bvh_nodes=bvh_nodes,
+        bvh_tris=bvh_tris,
+        tri_leaf=jnp.asarray(tri_leaf),
+        refit_internal=jnp.asarray(refit_internal),
         atlas=None if atlas is None else jnp.asarray(atlas),
         atlas_rects=None if atlas_rects is None else jnp.asarray(atlas_rects),
         atlas_mip_rects=(None if atlas_mip_rects is None
                          else jnp.asarray(atlas_mip_rects)),
         atlas_quad=atlas_quad,
         mip_lod_scale=float(mip_lod_scale),
-        woop=woop,
-        cluster_min=cmin,
-        cluster_max=cmax,
         tri_vidx=jnp.asarray(scene.tri_vidx),
         positions=jnp.asarray(scene.positions),
         tri_adj=(None if scene.tri_adj is None
@@ -207,6 +256,7 @@ def upload(scene: FlatScene, atlas=None, atlas_rects=None,
         num_triangles=int(scene.num_triangles),
         stack_depth=int(scene.max_depth) + 2,
         max_leaf=int(scene.node_count.max()),
+        refit_level_sizes=level_sizes,
     )
 
 
@@ -222,7 +272,7 @@ def with_positions(scene: MeshScene, positions) -> MeshScene:
     gradients land on the same shared vertices — consistent by
     construction.
 
-    Note: the BVH node bounds and Pallas cluster tables are built from the
+    Note: the BVH node bounds and kernel tables are built from the
     *uploaded* geometry; within one gradient evaluation they agree with
     ``positions``, but after an optimizer step moves vertices call
     ``refit_accel`` (jit-able) so traversal candidates track the geometry.
@@ -241,51 +291,33 @@ def with_positions(scene: MeshScene, positions) -> MeshScene:
 
 
 def refit_accel(scene: MeshScene) -> MeshScene:
-    """Refit acceleration tables to the current tri_v0/v1/v2 (jit-able).
+    """Refit the BVH node bounds and kernel tables to the current
+    tri_v0/v1/v2 over the uploaded topology (jit-able).
 
-    Rebuilds the Pallas Woop table + cluster AABBs in jnp.  BVH *node*
-    bounds are not refit (the "bvh" strategy is a CPU-validation path);
-    the dense and pallas strategies never read node bounds, so
-    optimization loops using them stay correct.  The returned scene is
-    flagged ``stale_node_bounds`` and the "bvh" strategy refuses to run
-    on it.  Use after optimizer steps that move vertices.
+    Leaf bounds are a segment min/max over each leaf's triangles; internal
+    nodes are refit bottom-up, one depth level at a time, as the min/max
+    of their two children (merged-child layout: ``node_first`` and
+    ``node_first + 1``).  Min and max are exact, so the result equals a
+    host rebuild of the bounds over the same tree.  Use after optimizer
+    steps that move vertices.
     """
-    if scene.woop is None:
-        return scene
-    from srt_tpu.ops.traversal_pallas import CLUSTER
-
     v0, v1, v2 = scene.tri_v0, scene.tri_v1, scene.tri_v2
-    e1 = v1 - v0
-    e2 = v2 - v0
-    nrm = jnp.cross(e1, e2)
-    a = jnp.stack([e1, e2, nrm], axis=-1)               # [T, 3, 3]
-    det = jnp.linalg.det(a)
-    # f32 threshold (the host build uses 1e-18 in f64): near-singular
-    # inverses overflow f32, and such slivers never win a closest hit.
-    ok = jnp.abs(det) > 1e-12
-    a_safe = jnp.where(ok[:, None, None], a, jnp.eye(3)[None])
-    a_inv = jnp.linalg.inv(a_safe)
-    trans = -jnp.einsum("tij,tj->ti", a_inv, v0)
-    t_count = v0.shape[0]
-    rows = [a_inv[:, r // 4, r % 4] if r % 4 < 3 else trans[:, r // 4]
-            for r in range(12)]
-    n2 = jnp.sum(nrm * nrm, axis=1)
-    from srt_tpu.ops import intersect as _i
-    eps = jnp.where(ok, _i.MT_PARALLEL_EPS / jnp.maximum(n2, 1e-30), jnp.inf)
-    w = jnp.stack(rows + [eps], axis=0).astype(jnp.float32)  # [13, T]
-    w16 = jnp.zeros((16, t_count), jnp.float32).at[:13].set(w)
-    c_total = t_count // CLUSTER
-    woop = w16.reshape(16, c_total, CLUSTER).transpose(1, 0, 2)
-
-    def chunk(arr):
-        return arr.reshape(c_total, CLUSTER, 3)
-
-    cmin = jnp.minimum(jnp.minimum(chunk(v0).min(1), chunk(v1).min(1)),
-                       chunk(v2).min(1))
-    cmax = jnp.maximum(jnp.maximum(chunk(v0).max(1), chunk(v1).max(1)),
-                       chunk(v2).max(1))
-    return scene.replace(woop=woop, cluster_min=cmin, cluster_max=cmax,
-                         stale_node_bounds=True)
+    n_nodes = scene.node_min.shape[0]
+    lo = jax.ops.segment_min(jnp.minimum(jnp.minimum(v0, v1), v2),
+                             scene.tri_leaf, num_segments=n_nodes)
+    hi = jax.ops.segment_max(jnp.maximum(jnp.maximum(v0, v1), v2),
+                             scene.tri_leaf, num_segments=n_nodes)
+    off = 0
+    for size in scene.refit_level_sizes:
+        ids = scene.refit_internal[off:off + size]
+        off += size
+        c = scene.node_first[ids]
+        lo = lo.at[ids].set(jnp.minimum(lo[c], lo[c + 1]))
+        hi = hi.at[ids].set(jnp.maximum(hi[c], hi[c + 1]))
+    nodes, tris = traversal_cuda.pack_tables(
+        lo, hi, scene.node_first, scene.node_count, v0, v1, v2)
+    return scene.replace(node_min=lo, node_max=hi, bvh_nodes=nodes,
+                         bvh_tris=tris)
 
 
 def transform_rays(frame, origins, dirs):
@@ -293,8 +325,8 @@ def transform_rays(frame, origins, dirs):
     origin as a point, direction as a vector (no normalize).
     origins/dirs: [3, N] component-first (ops/vec.py)."""
     rot = frame[:3, :3]
-    o = rot @ origins + frame[:3, 3][:, None]
-    d = rot @ dirs
+    o = jnp.dot(rot, origins, precision=HIGHEST) + frame[:3, 3][:, None]
+    d = jnp.dot(rot, dirs, precision=HIGHEST)
     return o, d
 
 
@@ -304,7 +336,7 @@ def normal_to_world(frame, normals):
     raytrace_compute.glsl:157 — which is only correct for identity frames.)
     """
     from srt_tpu.ops.safemath import safe_normalize
-    return safe_normalize(normals @ frame[:3, :3])
+    return safe_normalize(jnp.dot(normals, frame[:3, :3], precision=HIGHEST))
 
 
 # ---------------------------------------------------------------------------
@@ -337,35 +369,38 @@ def _dense_model_hit(scene: MeshScene, b: int, origins, dirs, t_best):
 
 def _bvh_traverse_single(scene: MeshScene, root: int, o, d, t_init):
     """One ray through one model's BVH — ``Intersects``
-    (ray_intersects.glsl:99-133) as a while_loop with a fixed stack."""
+    (ray_intersects.glsl:99-133) as a while_loop with a fixed stack.
+    Returns the candidate (t, triangle)."""
     stack = jnp.zeros((scene.stack_depth,), jnp.int32).at[0].set(root)
+    tv0, tv1, tv2 = (jax.lax.stop_gradient(x)
+                     for x in (scene.tri_v0, scene.tri_v1, scene.tri_v2))
 
     def mt_one(idx):
-        v0 = scene.tri_v0[idx]
-        e1 = scene.tri_v1[idx] - v0
-        e2 = scene.tri_v2[idx] - v0
+        v0 = tv0[idx]
+        e1 = tv1[idx] - v0
+        e2 = tv2[idx] - v0
         h = jnp.cross(d, e2)
-        a = jnp.dot(e1, h)
+        a = jnp.sum(e1 * h)
         parallel = jnp.abs(a) < intersect.MT_PARALLEL_EPS
         f = 1.0 / jnp.where(parallel, 1.0, a)
         s = o - v0
-        u = f * jnp.dot(s, h)
+        u = f * jnp.sum(s * h)
         q = jnp.cross(s, e1)
-        v = f * jnp.dot(d, q)
-        t = f * jnp.dot(e2, q)
+        v = f * jnp.sum(d * q)
+        t = f * jnp.sum(e2 * q)
         miss = parallel | (u < 0) | (u > 1) | (v < 0) | (u + v > 1) \
             | (t <= intersect.MT_HIT_EPS)
-        return jnp.where(miss, INF, t), u, v
+        return jnp.where(miss, INF, t)
 
     def cond(state):
         sp, *_ = state
         return sp > 0
 
     def body(state):
-        sp, stack, best_t, best_i, best_u, best_v = state
+        sp, stack, best_t, best_i = state
         sp = sp - 1
         ni = stack[sp]
-        dist = intersect.ray_aabb(o, d, scene.node_min[ni], scene.node_max[ni])
+        dist = intersect.box_entry(o, d, scene.node_min[ni], scene.node_max[ni])
         enter = (dist < best_t) & jnp.isfinite(dist)
         first = scene.node_first[ni]
         count = scene.node_count[ni]
@@ -377,12 +412,10 @@ def _bvh_traverse_single(scene: MeshScene, root: int, o, d, t_init):
         for k in range(scene.max_leaf):
             idx = first + k
             valid = enter & is_leaf & (k < count)
-            t, u, v = mt_one(idx)
+            t = mt_one(idx)
             better = valid & (t < best_t)
             best_t = jnp.where(better, t, best_t)
             best_i = jnp.where(better, idx, best_i)
-            best_u = jnp.where(better, u, best_u)
-            best_v = jnp.where(better, v, best_v)
 
         # Internal: push both children (left processed first, like the
         # reference's pop order).
@@ -391,26 +424,49 @@ def _bvh_traverse_single(scene: MeshScene, root: int, o, d, t_init):
         nxt = jnp.minimum(sp + 1, scene.stack_depth - 1)
         stack = stack.at[nxt].set(jnp.where(push, first, stack[nxt]))
         sp = jnp.where(push, sp + 2, sp)
-        return sp, stack, best_t, best_i, best_u, best_v
+        return sp, stack, best_t, best_i
 
-    init = (jnp.int32(1), stack, t_init, MISS, jnp.float32(0), jnp.float32(0))
-    _, _, t, i, u, v = jax.lax.while_loop(cond, body, init)
-    return t, i, u, v
+    init = (jnp.int32(1), stack, t_init, MISS)
+    _, _, t, i = jax.lax.while_loop(cond, body, init)
+    return t, i
 
 
-def _bvh_model_hit(scene: MeshScene, b: int, origins, dirs, t_best):
-    if scene.stale_node_bounds:
-        raise ValueError(
-            "scene was refit_accel'd after a vertex update: BVH node "
-            "bounds are stale (refit_accel only rebuilds the Pallas "
-            "tables). Use method='dense'/'pallas', or re-upload the scene."
-        )
-    o_m, d_m = transform_rays(scene.frames[b], origins, dirs)
+def _bvh_model_hit(scene: MeshScene, b: int, origins, dirs, t_best,
+                   any_hit=False, t_min=0.0):
+    """Candidate (t, triangle) for model ``b`` from the vmapped stack walk
+    on ``stop_gradient``'d operands (a while_loop has no reverse-mode
+    rule; ``mesh_hit_fn`` refines the winner differentiably).  ``any_hit``
+    and ``t_min`` are accepted for signature parity with the kernel; the
+    walk always finds the closest hit."""
+    sg = jax.lax.stop_gradient
+    o_m, d_m = transform_rays(sg(scene.frames[b]), sg(origins), sg(dirs))
     root = scene.model_first_node[b]
-    t, i, u, v = jax.vmap(
+    t_init = jnp.broadcast_to(sg(jnp.asarray(t_best, jnp.float32)),
+                              (origins.shape[1],))
+    return jax.vmap(
         lambda o, d, tb: _bvh_traverse_single(scene, root, o, d, tb)
-    )(o_m.T, d_m.T, t_best)
-    return t, i, u, v
+    )(o_m.T, d_m.T, t_init)
+
+
+def _cuda_model_hit(scene: MeshScene, b: int, origins, dirs, t_best,
+                    any_hit=False, t_min=0.0):
+    """Candidate (t, triangle) for model ``b`` from the GPU kernel."""
+    o_m, d_m = transform_rays(scene.frames[b], origins, dirs)
+    return traversal_cuda.traverse(
+        scene.bvh_nodes, scene.bvh_tris, o_m, d_m, t_best,
+        root=scene.model_first_node[b], stack_depth=scene.stack_depth,
+        any_hit=any_hit, t_min=t_min)
+
+
+def candidate_model_hit(scene: MeshScene, method: str):
+    """The per-model candidate search of a ``CANDIDATE_METHODS`` strategy:
+    ``(scene, b, origins, dirs, t_best, any_hit, t_min) -> (t, tri)``."""
+    if method == "cuda":
+        traversal_cuda.require_gpu()
+        return _cuda_model_hit
+    if method == "bvh":
+        return _bvh_model_hit
+    raise ValueError(f"not a candidate traversal method: {method}")
 
 
 # ---------------------------------------------------------------------------
@@ -469,18 +525,11 @@ def triangle_material(scene: MeshScene, tri_idx, u, v, t=None,
     )
 
 
-def pallas_model_hit_for_tests(scene: MeshScene, origins, dirs, t_best):
-    """Direct single-model kernel entry (test hook; [3, N] rays)."""
-    from srt_tpu.ops.traversal_pallas import pallas_model_hit
-    return pallas_model_hit(scene, 0, origins, dirs, t_best)
-
-
 def _tri_record(scene: MeshScene) -> jnp.ndarray:
     """Pack everything shading needs per triangle into one [T, 36] table.
 
-    Row gathers on TPU cost milliseconds per 256k indices (ops/gather.py),
-    so the post-hit pass does ONE ``record[idx]`` gather instead of ~12
-    separate vertex/uv/material gathers.  Layout (36 columns): v0 v1 v2
+    The post-hit pass does ONE ``record[idx]`` gather instead of ~12
+    separate vertex/uv/material gathers (ops/gather.py).  Layout (36 columns): v0 v1 v2
     (0-8), uv0 uv1 uv2 (9-14), Kd (15-17), Ks (18-20), Ns (21), use_tex
     (22), tex_idx (23), Ke (24-26), shading normals n0 n1 n2 (27-35, zero
     = geometric).  Built from the
@@ -533,58 +582,26 @@ def _record_material(scene: MeshScene, rec_t, u, v, t=None,
 
 
 def mesh_hit_fn(scene: MeshScene, method: str = "dense",
-                flip_normals: bool = True, ray_tile: int = 0,
-                kernel_tile: int = 0, binned=False,
-                binned_anyhit=None) -> HitFn:
+                flip_normals: bool = True, ray_tile: int = 0) -> HitFn:
     """Build the integrator's closest-hit callable for a mesh scene.
 
     Mirrors the model branch of ``CheckHit`` (raytrace_compute.glsl:143-161):
     per-model frame transform, traversal bounded by the running closest t
     across models, material conversion on the winning triangle.
 
-    ``ray_tile > 0`` processes rays in fixed tiles via ``lax.map`` to bound
-    the [tile, T] dense working set.  ``kernel_tile`` overrides the Pallas
-    kernel's rays-per-tile (default DEFAULT_TILE; smaller tiles tighten
-    per-tile supercluster unions for incoherent bounce rays at 2x the
-    fixed per-tile cost).  ``binned`` (pallas only) selects the traversal
-    walk: False = tiled supercluster walk, True = r3 pair-binned mode,
-    "pg2:G:W" = the per-group walk at G-ray groups with W-wide evals (the
-    incoherent-bounce production mode; see
-    ``ops.traversal_pallas.pallas_model_hit``).  ``binned_anyhit``
-    overrides the walk for any-hit (shadow) queries only — shadow and
-    bounce rays have different footprints, so the compact driver picks
-    per-bounce AND per-query-kind strategies (None = same as ``binned``).
+    ``method`` is a traversal strategy (module docstring; see
+    ``default_method``).  ``ray_tile > 0`` processes rays in fixed tiles
+    via ``lax.map`` to bound the [tile, T] dense working set; the
+    candidate strategies keep O(N) state and ignore it.
     """
-    if method == "pallas":
-        import functools as _ft
-
-        from srt_tpu.ops.traversal_pallas import (DEFAULT_TILE, SUPER,
-                                                  pallas_model_hit)
-        if kernel_tile == 0:
-            # Adaptive default (measured on v5e, 102k-tri headline scene):
-            # large scenes want small tiles — per-tile supercluster unions
-            # tighten for incoherent bounce rays (512 -> 128 was +34%
-            # frame throughput; 256 beat 128 on isolated primary/synthetic
-            # workloads but measured ~5% SLOWER on the full frame, r3
-            # matrix) — tiny scenes want big tiles (culling can't help
-            # when one super covers the scene, fixed costs dominate).
-            n_supers = (scene.woop.shape[0] + SUPER - 1) // SUPER \
-                if scene.woop is not None else 1
-            kernel_tile = 128 if n_supers > 8 else DEFAULT_TILE
-        model_hit = _ft.partial(pallas_model_hit, tile=kernel_tile,
-                                binned=binned)
-        if binned_anyhit is not None:
-            model_hit_any = _ft.partial(pallas_model_hit, tile=kernel_tile,
-                                        binned=binned_anyhit)
-        else:
-            model_hit_any = model_hit
-        ray_tile = 0  # the kernel tiles rays itself
+    if method in CANDIDATE_METHODS:
+        model_hit = candidate_model_hit(scene, method)
+        ray_tile = 0
     elif method == "dense":
         model_hit = _dense_model_hit
-    elif method == "bvh":
-        model_hit = _bvh_model_hit
     else:
         raise ValueError(f"unknown traversal method: {method}")
+    candidate = method in CANDIDATE_METHODS
 
     def hit_tile(origins, dirs, t_min, t_max, any_hit=False, cone=None):
         n = origins.shape[1]
@@ -594,13 +611,12 @@ def mesh_hit_fn(scene: MeshScene, method: str = "dense",
         best_v = jnp.zeros((n,), jnp.float32)
         best_b = jnp.zeros((n,), jnp.int32)
         for b in range(scene.num_models):
-            if method == "pallas":
-                # Kernel candidates only; exact (t, u, v) is re-derived once
-                # for the cross-model winner below (one gather, not 3/model).
-                mh = model_hit_any if any_hit else model_hit
-                t, i, u, v = mh(scene, b, origins, dirs, best_t,
-                                any_hit=any_hit, refine=False,
-                                t_min=t_min)
+            if candidate:
+                # Candidates only; exact (t, u, v) is re-derived once for
+                # the cross-model winner below (one gather, not 3/model).
+                t, i = model_hit(scene, b, origins, dirs, best_t,
+                                 any_hit=any_hit, t_min=t_min)
+                u = v = best_u
             else:
                 t, i, u, v = model_hit(scene, b, origins, dirs, best_t)
             better = (i != MISS) & (t < best_t) & (t > t_min)
@@ -651,8 +667,8 @@ def mesh_hit_fn(scene: MeshScene, method: str = "dense",
                     o_m = jnp.where(m, o_b, o_m)
                     d_m = jnp.where(m, d_b, d_m)
 
-        if method == "pallas":
-            # Exact Moller-Trumbore refine of the kernel's winner so
+        if candidate:
+            # Exact Moller-Trumbore refine of the candidate winner so
             # (t, u, v) precision matches the dense path.
             h = vec.cross(d_m, e2)
             a = jnp.sum(e1 * h, axis=0)
@@ -686,11 +702,13 @@ def mesh_hit_fn(scene: MeshScene, method: str = "dense",
 
         # Normal to world via the transpose of world->model.
         if scene.num_models == 1:
-            normal = scene.frames[0][:3, :3].T @ n_model
+            normal = jnp.dot(scene.frames[0][:3, :3].T, n_model,
+                             precision=HIGHEST)
         else:
             normal = None
             for b in range(scene.num_models):
-                n_b = scene.frames[b][:3, :3].T @ n_model
+                n_b = jnp.dot(scene.frames[b][:3, :3].T, n_model,
+                              precision=HIGHEST)
                 if normal is None:
                     normal = n_b
                 else:

@@ -1,6 +1,6 @@
 """The wavefront path tracer — the heart of the framework.
 
-TPU-native re-design of the reference GLSL megakernel's path-trace loop
+Wavefront re-design of the reference GLSL megakernel's path-trace loop
 (``GetRayColor``, shaders/raytrace_compute.glsl:208-294).  Instead of one
 thread per pixel running a divergent ``while(true)``, the whole image is a
 ``[N = H*W]`` ray wavefront and each bounce is one batched pass:
@@ -8,15 +8,13 @@ thread per pixel running a divergent ``while(true)``, the whole image is a
   closest hit -> RIS light sample -> shadow ray -> direct lighting
   -> BRDF lobe selection -> Russian roulette -> indirect bounce
 
-with an ``alive`` mask instead of ``break`` (TPU needs static shapes, see
+with an ``alive`` mask instead of ``break`` (XLA needs static shapes, see
 SURVEY.md hard-part #3).  The loop runs ``max_depth`` free bounces plus
 ``rr_bounces`` Russian-roulette bounces; still-alive paths are then
 terminated as a miss.
 
 Data layout is component-first (ops/vec.py): positions/directions/colors are
-``[3, N]`` with the ray axis minor so every op is lane-dense on the VPU —
-the ``[N, 3]`` layout pads 3 -> 128 lanes and measured as ~80% of frame time
-in materialized intermediates.
+``[3, N]`` with the ray axis minor so every op reads whole coalesced rows.
 
 Scene geometry is abstracted behind a ``closest_hit(origins, dirs, t_min,
 t_max) -> Hit`` callable so spheres (this file) and BVH meshes
@@ -274,7 +272,7 @@ def _occluded(closest_hit: HitFn, p, light_pos, t_min, active=None):
     """Shadow ray (``CheckLightOccluded``, raytrace_compute.glsl:167-176):
     cast p -> light, occluded if anything hits before the light.
     ``active`` masks dead lanes with t_max = 0 so compaction-aware
-    intersectors (the Pallas kernel) skip them entirely.
+    intersectors (the GPU kernel) exit them at once.
 
     See ``_occluded_sorted`` for the batch-re-sorted variant used on
     late bounces (an r3 rejection overturned in r5 — history in its
@@ -384,8 +382,8 @@ def bounce_step(closest_hit: HitFn, lights: Lights, cfg: RenderConfig,
     prev_pdf = fields[k] if nee_on else None
     num_lights = lights.count
     takes_cone = cone is not None and _supports_kw(closest_hit, "cone")
-    # Dead lanes trace with t_max = 0: compaction-aware intersectors
-    # (Pallas cluster kernel) then skip their tiles outright.
+    # Dead lanes trace with t_max = 0: the BVH walks then exit at the
+    # root box.
     rec = closest_hit(
         origins, dirs, cfg.t_min, jnp.where(alive, jnp.inf, 0.0),
         **({"cone": cone} if takes_cone else {})
@@ -595,9 +593,8 @@ def bounce_step(closest_hit: HitFn, lights: Lights, cfg: RenderConfig,
         # Re-pack the wavefront for the next bounce (see
         # _bounce_sort_keys); one stable u32 argsort per bounce.
         # The permutation is applied as ONE row gather on a packed
-        # [N, 14] array: lane-axis gathers on the component-first
-        # [3, N] carries cost ~100 ms/bounce at 1M rays on TPU
-        # (measured), row-major gathers ~5 ms.
+        # [N, 14] array instead of one gather per component-first
+        # [3, N] carry.
         order = jnp.argsort(
             _bounce_sort_keys(origins, dirs, cont, bounce), stable=True)
         extra = [] if cone is None else [cwidth[None], cspread[None]]

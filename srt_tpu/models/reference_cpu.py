@@ -2,7 +2,7 @@
 
 The reference keeps a CPU software renderer as its correctness anchor
 (src/raytracer/raytracer.cpp, off by default — SURVEY.md section 3.3).  This
-module plays that role for the TPU build: a from-scratch numpy
+module plays that role for the JAX build: a from-scratch numpy
 implementation of the same rendering *specification* (camera derivation,
 sphere intersection, GGX BRDF, RIS lights, Russian roulette, masked bounce
 loop, sky term) that shares **no code** with the JAX renderer.  Tests drive

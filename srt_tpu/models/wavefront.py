@@ -58,11 +58,9 @@ def hit_ids(scene: MeshScene, origins, dirs, t_min: float = 1e-3,
         else jnp.broadcast_to(jnp.asarray(t_max, jnp.float32), (n,))
     best_i = jnp.full((n,), jnp.int32(-1))
     for b in range(scene.num_models):
-        if method == "pallas":
-            from srt_tpu.ops.traversal_pallas import pallas_model_hit
-            t, i, _, _ = pallas_model_hit(scene, b, o_t, d_t, best_t)
-        elif method == "bvh":
-            t, i, _, _ = mesh_mod._bvh_model_hit(scene, b, o_t, d_t, best_t)
+        if method in mesh_mod.CANDIDATE_METHODS:
+            t, i = mesh_mod.candidate_model_hit(scene, method)(
+                scene, b, o_t, d_t, best_t)
         else:
             t, i, _, _ = mesh_mod._dense_model_hit(scene, b, o_t, d_t, best_t)
         better = (i != -1) & (t < best_t) & (t > t_min)

@@ -1,1 +1,1 @@
-"""Device-side compute ops (the TPU analog of the reference's shaders/)."""
+"""Device-side compute ops (the analog of the reference's shaders/)."""

@@ -1,6 +1,6 @@
 """GGX microfacet BRDF library, batched over ray wavefronts.
 
-TPU-native rewrite of shaders/brdf.glsl + the shading helpers in
+Wavefront rewrite of shaders/brdf.glsl + the shading helpers in
 shaders/raytrace_utils.glsl: Cook-Torrance GGX with Smith height-correlated
 masking, Schlick Fresnel, cosine-weighted diffuse + GGX half-vector sampling,
 RIS (resampled importance sampling) over point lights, and the lobe-selection
@@ -434,8 +434,7 @@ def sample_lights_ris(p, lights: Lights, u_idx, u_sel):
     selected = jnp.zeros((n,), bool)
 
     # Per-light pdf = intensity * falloff, computed once for all L lights
-    # with no gathers (row gathers cost milliseconds per 256k rays on TPU;
-    # see ops/gather.py).  The reservoir loop then selects by index with
+    # with no gathers (see ops/gather.py).  The reservoir loop then selects by index with
     # cheap where-chains.
     pdf_k = [
         lights.intensity[k] * light_falloff(p, vec.col(lights.position[k]))

@@ -1,11 +1,9 @@
-"""Gather replacements for TPU.
+"""Gather replacements for small static tables.
 
-Row gathers by a ``[N]`` index vector cost ~1.7-3.4 ms per 256k indices on
-TPU (measured; the gather unit processes a few rows per cycle), while a
-``jnp.where`` select over the same data costs ~35-70 us.  For *small static
-tables* (lights, sphere materials, per-model frames) an unrolled
-select-chain is therefore 10-50x faster than ``table[idx]`` and fuses into
-neighboring elementwise work.
+For *small static tables* (lights, sphere materials, per-model frames) an
+unrolled ``jnp.where`` select-chain replaces ``table[idx]``: it fuses into
+neighboring elementwise work instead of materializing a gather.  Whether
+that wins on the GPU is not measured yet (ROADMAP).
 
 The reference had no such concern: GLSL SSBO indexing is a hardware gather
 (e.g. the light loop at shaders/raytrace_compute.glsl:185-202 indexes

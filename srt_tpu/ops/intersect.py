@@ -1,12 +1,13 @@
 """Primitive intersection ops, batched over ray wavefronts.
 
-TPU-native rewrites of the reference GLSL intersectors — instead of one ray
+Wavefront rewrites of the reference GLSL intersectors — instead of one ray
 per shader invocation, every function is vectorized over an ``[N]`` ray batch
 (and where applicable an ``[T]`` primitive batch), producing dense
-``[N]``/``[N, T]`` arrays the VPU chews through:
+``[N]``/``[N, T]`` arrays:
 
 * spheres — ``SphereHit`` (shaders/raytrace_compute.glsl:93-120, RTiOW form)
-* AABB slab test — ``IntersectsBox`` (shaders/ray_intersects.glsl:49-58)
+* AABB slab test — ``IntersectsBox`` (shaders/ray_intersects.glsl:49-58),
+  with the entry distance clamped for inside origins
 * Moller-Trumbore triangles — ``IntersectsTriangle``
   (shaders/ray_intersects.glsl:61-96)
 
@@ -70,23 +71,28 @@ def sphere_normal(p, center, radius, dirs):
     return jnp.where(front[None, :], outward, -outward), front
 
 
-def ray_aabb(origins, dirs, bmin, bmax):
-    """Slab test; entry distance, exit distance if inside, INF on miss.
+def box_entry(origins, dirs, bmin, bmax):
+    """Slab test for BVH culling: the distance at which the ray enters the
+    box (0 when the origin is inside), INF when it misses the box or the
+    box lies behind the origin.
 
-    origins/dirs: [..., 3]; bmin/bmax broadcastable to [..., 3].
-    Exactly ``IntersectsBox`` (ray_intersects.glsl:49-58):
-    ``t_near <= t_far ? (t_near >= 0 ? t_near : t_far) : INF``.
-    Division by zero direction components yields +/-inf which min/max
-    handle correctly (same as GLSL).
+    origins/dirs: [..., 3]; bmin/bmax broadcastable to [..., 3].  Follows
+    ``IntersectsBox`` (ray_intersects.glsl:49-58) except for an inside
+    origin, where the reference returns the EXIT distance: a walk that
+    prunes boxes against the best hit then skips a box holding a nearer
+    hit, which loses hits of rays that start inside the scene (every
+    bounce).  Division by zero direction components yields +/-inf; a NaN
+    slab (origin on the plane of an axis-parallel ray) is dropped by
+    fmin/fmax, which keeps the box — the GPU kernel's rule as well.
     """
     inv = 1.0 / dirs
     t0 = (bmin - origins) * inv
     t1 = (bmax - origins) * inv
-    t_near = jnp.max(jnp.minimum(t0, t1), axis=-1)
-    t_far = jnp.min(jnp.maximum(t0, t1), axis=-1)
-    return jnp.where(
-        t_near <= t_far, jnp.where(t_near >= 0.0, t_near, t_far), INF
-    )
+    lo, hi = jnp.fmin(t0, t1), jnp.fmax(t0, t1)
+    t_near = jnp.fmax(jnp.fmax(lo[..., 0], lo[..., 1]), lo[..., 2])
+    t_far = jnp.fmin(jnp.fmin(hi[..., 0], hi[..., 1]), hi[..., 2])
+    return jnp.where((t_near <= t_far) & (t_far >= 0.0),
+                     jnp.maximum(t_near, 0.0), INF)
 
 
 def moller_trumbore(origins, dirs, v0, v1, v2):
@@ -101,14 +107,14 @@ def moller_trumbore(origins, dirs, v0, v1, v2):
     e1 = v1 - v0                                             # [T, 3]
     e2 = v2 - v0
     h = jnp.cross(dirs[:, None, :], e2[None, :, :])          # [N, T, 3]
-    a = jnp.einsum("td,ntd->nt", e1, h)                      # [N, T]
+    a = _dot(e1[None, :, :], h)                              # [N, T]
     parallel = jnp.abs(a) < MT_PARALLEL_EPS
     f = 1.0 / jnp.where(parallel, 1.0, a)
     s = origins[:, None, :] - v0[None, :, :]                 # [N, T, 3]
     u = f * _dot(s, h)
     q = jnp.cross(s, e1[None, :, :])                         # [N, T, 3]
-    v = f * jnp.einsum("nd,ntd->nt", dirs, q)
-    t = f * jnp.einsum("td,ntd->nt", e2, q)
+    v = f * _dot(dirs[:, None, :], q)
+    t = f * _dot(e2[None, :, :], q)
     miss = parallel | (u < 0.0) | (u > 1.0) | (v < 0.0) | (u + v > 1.0) \
         | (t <= MT_HIT_EPS)
     return jnp.where(miss, INF, t), u, v

@@ -2,13 +2,13 @@
 
 The reference dispatches pixels in 8x8 workgroups (raytrace_compute.glsl:12,
 src/main.cpp:706), which is itself a locality trick: rays in a workgroup
-take similar BVH paths.  Our Pallas cluster kernel tiles the wavefront into
-``tile``-ray chunks, so the analogous trick is to order rays along a Morton
-curve: a 512-ray tile then covers a compact ~32x16 pixel block instead of a
-full image row.  Two wins, both measured:
+take similar BVH paths.  The analogous trick for a ray wavefront is to
+order rays along a Morton curve: a block of 512 consecutive rays (e.g. the
+warps of a few GPU thread blocks) then covers a compact ~32x16 pixel block
+instead of a full image row:
 
-* primary rays in a tile share cluster AABB overlap -> shorter per-tile
-  active-cluster lists in the intersect kernel;
+* neighbouring rays walk similar BVH nodes -> less divergence and better
+  cache reuse in the traversal;
 * terminated paths cluster spatially (paths die where the scene is empty),
   so whole tiles go dead together and are skipped outright by the kernel's
   all-dead early-out (t_max == 0 lanes).
@@ -83,8 +83,8 @@ class PermutedStream:
 
 def permute_rays(origins, dirs, perm):
     """Apply a ray permutation to [3, N] origin/direction pairs via ONE
-    row-major gather on a packed [N, 6] array — gathers along the lane
-    axis of component-first arrays cost ~100 ms per 1M rays on TPU."""
+    row-major gather on a packed [N, 6] array instead of six gathers
+    along the minor axis of the component-first arrays."""
     import jax.numpy as jnp
 
     packed = jnp.concatenate([origins, dirs], axis=0).T[perm].T

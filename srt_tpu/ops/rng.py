@@ -15,7 +15,7 @@ Two interchangeable stream implementations feed the renderer:
   order, making renderer-vs-oracle comparisons exact).
 
 Streams yield ``[k, N]`` blocks (slot-major): the wavefront layout keeps the
-ray axis minor so each slot row is lane-dense on the VPU (see ops/vec.py).
+ray axis minor so each slot row is contiguous (see ops/vec.py).
 
 The slot protocol per path-tracing bounce (see models/pathtracer.py):
 ``[ris_idx x L | ris_sel x L | lobe | rr | diff_r1 | diff_r2 | h_r1 | h_r2]``
@@ -50,10 +50,8 @@ class SlotBlock:
     full (``full()`` == ``jax.random.uniform(sub, (k, n))``) or row-slice
     by data-dependent columns (``rows_at``) WITHOUT a gather: the threefry
     counter lattice is evaluated directly at the requested (slot, column)
-    indices.  Row gathers of pre-drawn uniform tables cost ~8 ms per
-    1M-ray bounce on TPU (measured r5, the compact driver's largest glue
-    item); recomputing ~100 integer ops per element on the VPU costs
-    ~1 ms.  Bit-equality with the gathered path is asserted by
+    indices: ~100 integer ops per element instead of a row gather of a
+    pre-drawn uniform table.  Bit-equality with the gathered path is asserted by
     tests/test_features.py (it depends on jax's partitionable threefry
     layout: bits(j) = w0 ^ w1 of the (0, j) counter block)."""
 

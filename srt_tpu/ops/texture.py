@@ -1,9 +1,9 @@
 """In-kernel texture sampling from a packed atlas.
 
-TPU replacement for the reference's bindless samplers: OpenGL lets the
+Device-side replacement for the reference's bindless samplers: OpenGL lets the
 kernel fetch through a ``sampler2D(uvec2 handle)`` resident handle
 (raytrace_utils.glsl:165-166, gpu_texture.h:60-63); XLA has no such thing,
-so all textures are packed into one ``[H, W, 3]`` atlas array in HBM at load
+so all textures are packed into one ``[H, W, 3]`` atlas array on the device at load
 time (utils/atlas.py) and fetches are bilinear gathers against per-texture
 rects — differentiable w.r.t. the atlas texels.
 """
@@ -17,8 +17,8 @@ def _sample_rect(atlas, r, uv, bilinear: bool, quad=None, atlas_w: int = 0):
     """Bilinear (or nearest) fetch inside per-ray rects r [N, 4].
 
     ``quad`` [H*W, 12] (utils/atlas.build_quad_table) turns the four
-    bilinear taps into ONE packed row gather — measured 2.9x faster on
-    TPU than four arbitrary 2D gathers.  The quad table is a host-built
+    bilinear taps into ONE packed row gather instead of four arbitrary
+    2D gathers.  The quad table is a host-built
     COPY of the atlas, so texture-recovery callers that differentiate
     w.r.t. atlas texels must keep ``quad=None`` (the per-tap path's
     gather VJP scatters into the live atlas array)."""

@@ -1,11 +1,8 @@
 """Component-first vector math for ray wavefronts.
 
-The TPU-native layout for a batch of N 3-vectors is ``[3, N]`` — component
-on the (8-wide) sublane axis, rays on the (128-wide) lane axis.  The naive
-``[N, 3]`` layout pads its minor dimension 3 up to 128 lanes, so every
-materialized intermediate costs ~42x its logical bytes in HBM traffic; with
-Pallas calls breaking XLA fusion each bounce materializes dozens of such
-intermediates, which measured as ~80% of frame time (see ARCHITECTURE.md,
+The wavefront layout for a batch of N 3-vectors is ``[3, N]`` — one
+contiguous row per component, rays on the minor axis, so every
+elementwise op reads and writes whole coalesced rows (see ARCHITECTURE.md,
 "Layout").  Per-ray scalars are plain ``[N]``.
 
 Conventions used across the shading path:

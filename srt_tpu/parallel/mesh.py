@@ -16,7 +16,7 @@ def device_mesh(n_rays_shards: Optional[int] = None,
                 devices: Optional[Sequence] = None) -> jax.sharding.Mesh:
     """Build a (rays, samples) mesh over the available devices.
 
-    Default: all devices on the rays axis — the TPU analog of the
+    Default: all devices on the rays axis — the device analog of the
     reference's (W/8)x(H/8) workgroup grid, but across chips.
     """
     devices = list(devices if devices is not None else jax.devices())

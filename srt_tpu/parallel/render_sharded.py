@@ -3,7 +3,7 @@
 Rays shard over the mesh's ``rays`` axis, spp samples over ``samples``,
 the scene pytree is replicated (in_spec ``P()``), matching the reference's
 whole-scene-per-device residency (gpu_loader.cpp:142-176) scaled across
-chips.  shard_map's replication semantics make the backward pass psum the
+devices.  shard_map's replication semantics make the backward pass psum the
 scene-parameter cotangents across the mesh automatically — the gradient
 all-reduce of SURVEY.md section 2.3, overlapped with backward compute by
 XLA's scheduler.
@@ -16,6 +16,7 @@ from typing import Callable
 
 import jax
 import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import PartitionSpec as P
 
 from srt_tpu.camera import derive_viewport, generate_rays
@@ -23,13 +24,6 @@ from srt_tpu.config import CameraConfig, RenderConfig
 from srt_tpu.models.pathtracer import trace_wavefront
 from srt_tpu.ops.rng import ArrayStream, total_slots
 from srt_tpu.scene import Lights
-
-try:  # jax >= 0.6 moved shard_map out of experimental
-    from jax import shard_map as _shard_map_mod  # type: ignore
-
-    shard_map = _shard_map_mod.shard_map if hasattr(_shard_map_mod, "shard_map") else _shard_map_mod
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore
 
 from srt_tpu.parallel.mesh import RAYS_AXIS, SAMPLES_AXIS
 

@@ -1,7 +1,7 @@
 """Scene pytrees: materials, spheres, point lights, and the default scenes.
 
 Everything is structure-of-arrays so a whole scene is a single pytree of
-device arrays — the TPU-native replacement for the reference's in-kernel
+device arrays — the device-side replacement for the reference's in-kernel
 hard-coded sphere/material table (shaders/raytrace_compute.glsl:299-364) and
 the host-side light rigs (src/main.cpp:580-595).  Because scenes are pytrees,
 they are differentiable: gradients flow from pixel losses into sphere

@@ -144,8 +144,7 @@ def build_quad_table(image: np.ndarray, rects: np.ndarray,
     """Quad-packed atlas for single-gather bilinear taps: row ``y*W + x``
     holds the 2x2 texel block [c00 c10 c01 c11] with REPEAT wrap applied
     per rect (gutter-free).  A bilinear fetch then needs ONE packed row
-    gather instead of four 2D gathers — measured 2.9x faster per tap on
-    TPU (r5; arbitrary gathers are this backend's known trap, CLAUDE.md).
+    gather instead of four 2D gathers.
     4x the atlas memory; texels outside every rect stay zero (never
     addressed: tap coordinates are always wrapped into a rect)."""
     h, w = image.shape[:2]

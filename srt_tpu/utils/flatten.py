@@ -8,13 +8,13 @@ matrices, BVH nodes with the merged child/prim index fixed up
 (:107-115) — except the destination is a pytree of numpy arrays destined for
 HBM (``jax.device_put`` replicated per host) instead of five SSBOs.
 
-TPU-specific choices:
+Device-side choices:
 * triangle vertex positions and UVs are **pre-gathered** per corner
-  (tri_v0/v1/v2, uv0/1/2) so the intersection kernels do zero indirection;
+  (tri_v0/v1/v2, uv0/1/2) so the intersection code does zero indirection;
   the index form (tri_vidx) is kept for vertex-gradient scatter-back;
-* arrays are padded to a multiple of ``pad_to`` so Pallas tiles divide
-  evenly; padding triangles are degenerate (never hit) and padding nodes
-  are empty leaves.
+* optionally each model's triangle block is padded to a multiple of
+  ``pad_to`` with duplicates of its last triangle, which no BVH leaf
+  references.
 """
 
 from __future__ import annotations
@@ -138,8 +138,9 @@ def flatten_models(
     (gpu_loader.cpp:185-196).
 
     ``pad_to > 1`` pads **each model's** triangle block (not just the tail)
-    to a multiple of ``pad_to`` with degenerate never-hit triangles so the
-    Pallas cluster kernel's 128-triangle lanes never straddle models.
+    to a multiple of ``pad_to`` with copies of its last triangle, which
+    no leaf references, so fixed-size triangle blocks never straddle
+    models.
     """
     from srt_tpu.utils.bvh import bvh_depth
 

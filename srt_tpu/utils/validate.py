@@ -1,6 +1,6 @@
 """Render-state validation and self-healing.
 
-TPU analog of the reference's runtime guards: ``ValidateRenderState``
+Device-side analog of the reference's runtime guards: ``ValidateRenderState``
 recreates the quad pipeline when GL handles go bad (src/main.cpp:358-379),
 the GL debug callback surfaces driver errors (main.cpp:141-155,412-420),
 and NaN pixels are painted green in-kernel (raytrace_compute.glsl:408-410).

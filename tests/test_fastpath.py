@@ -1,7 +1,8 @@
 """Library-default fast path (models/fastpath): the public API the
-headline bench measures.  CPU: pallas runs in interpret mode; the plan's
-output must match the dense method bit-for-bit on tie-free scenes, at
-spp=1 and with the spp-batched wavefront."""
+headline bench measures.  On the CPU the "bvh" candidate search stands in
+for the GPU kernel; the plan's output must match the dense method
+bit-for-bit on tie-free scenes, at spp=1 and with the spp-batched
+wavefront."""
 
 import jax
 import numpy as np
@@ -9,8 +10,7 @@ import pytest
 
 from srt_tpu.config import CameraConfig, RenderConfig
 from srt_tpu.models import mesh as mesh_mod
-from srt_tpu.models.fastpath import (default_walks, make_render_plan,
-                                     parse_walk, parse_walks)
+from srt_tpu.models.fastpath import make_render_plan
 from srt_tpu.scene import model_scene_lights
 from srt_tpu.utils.flatten import flatten_models
 from srt_tpu.utils.procgen import uv_sphere
@@ -27,11 +27,11 @@ def setup():
 
 
 @pytest.mark.parametrize("spp", [1, 4])
-def test_plan_pallas_matches_dense(setup, spp):
+def test_plan_bvh_matches_dense(setup, spp):
     scene, lights, cam = setup
     cfg = RenderConfig(max_depth=3, rr_bounces=0, spp=spp)
     imgs = {}
-    for method in ("pallas", "dense"):
+    for method in ("bvh", "dense"):
         plan = make_render_plan(scene, lights, cam, cfg, method=method)
         img, stats, overflow = plan.render(jax.random.key(2))
         assert int(overflow) == 0
@@ -39,9 +39,9 @@ def test_plan_pallas_matches_dense(setup, spp):
         assert int(np.asarray(stats).sum()) > 0
         imgs[method] = np.asarray(img)
     # Bit-equality holds except at exact-t ties on shared triangle edges
-    # (measure-zero; the documented pallas-vs-dense divergence).  At 4096
-    # rays a couple of tie pixels appear; bound them instead.
-    diff = np.abs(imgs["pallas"] - imgs["dense"]).max(axis=-1)
+    # (measure-zero; the documented candidate-vs-dense divergence).  At
+    # 4096 rays a couple of tie pixels appear; bound them instead.
+    diff = np.abs(imgs["bvh"] - imgs["dense"]).max(axis=-1)
     assert (diff > 1e-6).mean() < 0.005, \
         f"{(diff > 1e-6).sum()} differing pixels"
 
@@ -63,20 +63,3 @@ def test_spp_mean_matches_statistics(setup):
         im, _, _ = plan1.render(jax.random.key(100 + i))
         acc = np.asarray(im) if acc is None else acc + np.asarray(im)
     assert abs(float(np.asarray(img4).mean()) - float(acc.mean() / 4)) < 0.02
-
-
-def test_walk_parsing_and_validation(setup):
-    scene, lights, cam = setup
-    assert parse_walk("tiled@256") == (False, 256)
-    assert parse_walk("pg2:32:4") == ("pg2:32:4", 0)
-    assert parse_walk("binned") == (True, 0)
-    with pytest.raises(ValueError):
-        parse_walk("warp")
-    assert len(parse_walks("tiled,pg2:16:4", 4)) == 4
-    # pg2 group must divide the paired kernel tile.
-    with pytest.raises(ValueError, match="does not divide"):
-        make_render_plan(scene, lights, cam,
-                         RenderConfig(max_depth=2, rr_bounces=0),
-                         method="pallas", walks="tiled@256,pg2:96:4")
-    w, ws = default_walks(scene, 4)
-    assert len(w) == 4 and len(ws) == 4

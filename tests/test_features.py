@@ -121,17 +121,17 @@ def test_textured_mesh_renders(tmp_path):
     assert np.isfinite(np.asarray(img)).all()
 
 
-def test_textured_render_parity_dense_vs_pallas():
+def test_textured_render_parity_dense_vs_bvh():
     """Texture fetch parity across traversal strategies (the bench's
     config9 path): a procedurally textured mesh with mip atlas + ray-cone
-    LOD renders identically through the dense sweep and the production
-    Pallas kernels — the atlas gathers sit outside the kernel, so hit
+    LOD renders identically through the dense sweep and the BVH candidate
+    search + refine — the atlas gathers sit outside the traversal, so hit
     parity must imply image parity (bindless-fetch analog,
     raytrace_utils.glsl:140-175)."""
     from srt_tpu.utils.atlas import pack_atlas
 
     mesh = procgen.uv_sphere(12, 16, radius=1.5)
-    flat = flatten_models([mesh], pad_to=128)
+    flat = flatten_models([mesh])
     yy, xx = np.mgrid[0:64, 0:64].astype(np.float32) / 64.0
     checker = ((np.floor(xx * 8) + np.floor(yy * 8)) % 2)
     img = np.stack([0.2 + 0.6 * checker, 0.3 + 0.5 * yy,
@@ -150,13 +150,12 @@ def test_textured_render_parity_dense_vs_pallas():
                        look_at=(0, 0, 0))
     cfg = RenderConfig(max_depth=3, rr_bounces=0, ray_cones=True)
     imgs = {}
-    for method in ("dense", "pallas"):
+    for method in ("dense", "bvh"):
         imgs[method] = np.asarray(pathtracer.render(
-            mesh_mod.mesh_hit_fn(scene(), method=method,
-                                 kernel_tile=128),
+            mesh_mod.mesh_hit_fn(scene(), method=method),
             model_scene_lights(), cam, cfg, jax.random.key(0)))
         assert np.isfinite(imgs[method]).all()
-    np.testing.assert_allclose(imgs["pallas"], imgs["dense"],
+    np.testing.assert_allclose(imgs["bvh"], imgs["dense"],
                                rtol=1e-5, atol=1e-6)
     # The texture must actually be in the image (not the grey default Kd):
     # the checker makes albedo vary across pixels.

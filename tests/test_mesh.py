@@ -56,7 +56,7 @@ def test_bvh_traversal_matches_dense(mesh_name):
     t_max = jnp.full((256,), jnp.inf)
 
     td, id_, ud, vd = mesh_mod._dense_model_hit(scene, 0, o, d, t_max)
-    tb, ib, ub, vb = mesh_mod._bvh_model_hit(scene, 0, o, d, t_max)
+    tb, ib = mesh_mod._bvh_model_hit(scene, 0, o, d, t_max)
 
     hit_d = np.isfinite(np.asarray(td))
     hit_b = np.asarray(ib) != -1
@@ -68,7 +68,7 @@ def test_bvh_traversal_matches_dense(mesh_name):
 
 
 def test_crafted_rays_hit_then_model_moved_misses():
-    """The reference integration test in TPU form
+    """The reference integration test in wavefront form
     (BVH_intergration_tests.cpp:63-113): 64 crafted rays, odd aimed at the
     model and hitting, even aimed away and missing; then a model-matrix
     translation makes everything miss."""

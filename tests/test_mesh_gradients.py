@@ -1,5 +1,5 @@
-"""Mesh gradients end-to-end: vertex / material / frame gradients, pallas
-path differentiability, shared-vertex scatter-back, and a vertex-recovery
+"""Mesh gradients end-to-end: vertex / material / frame gradients,
+candidate-search (bvh) differentiability, shared-vertex scatter-back, and a vertex-recovery
 inverse-rendering demo (BASELINE config 4: "vertex + material gradients").
 
 Same stance as test_gradients.py: discrete decisions are fixed by injected
@@ -40,38 +40,39 @@ def render_mesh(scene, lights, uniforms, method="dense"):
     )
 
 
-def test_pallas_render_is_differentiable_and_matches_dense():
-    """jax.grad through method="pallas" (VERDICT r1 missing #1): finite,
-    nonzero, and equal to the dense-path gradients — the kernel is a pure
-    candidate search, gradients flow through the exact refine."""
+def test_bvh_render_is_differentiable_and_matches_dense():
+    """jax.grad through method="bvh": finite, nonzero, and equal to the
+    dense-path gradients — the walk is a pure candidate search on
+    stop_gradient'd operands (a while_loop has no reverse-mode rule), so
+    gradients flow through the exact refine, as for the GPU kernel."""
     scene, lights, uniforms = setup()
 
     def loss(diffuse, method):
         s = scene.replace(mat_diffuse=diffuse)
         return jnp.mean(render_mesh(s, lights, uniforms, method=method))
 
-    g_pallas = jax.grad(lambda d: loss(d, "pallas"))(scene.mat_diffuse)
+    g_bvh = jax.grad(lambda d: loss(d, "bvh"))(scene.mat_diffuse)
     g_dense = jax.grad(lambda d: loss(d, "dense"))(scene.mat_diffuse)
-    assert np.isfinite(np.asarray(g_pallas)).all()
-    assert np.abs(np.asarray(g_pallas)).max() > 1e-6
-    np.testing.assert_allclose(np.asarray(g_pallas), np.asarray(g_dense),
+    assert np.isfinite(np.asarray(g_bvh)).all()
+    assert np.abs(np.asarray(g_bvh)).max() > 1e-6
+    np.testing.assert_allclose(np.asarray(g_bvh), np.asarray(g_dense),
                                rtol=1e-4, atol=1e-7)
 
 
-def test_pallas_vertex_grads_match_dense():
+def test_bvh_vertex_grads_match_dense():
     """Shared-vertex gradients (scatter-back through tri_vidx) agree
-    between the pallas and dense strategies."""
+    between the bvh and dense strategies."""
     scene, lights, uniforms = setup()
 
     def loss(positions, method):
         s = mesh_mod.with_positions(scene, positions)
         return jnp.mean(render_mesh(s, lights, uniforms, method=method))
 
-    g_pallas = jax.grad(lambda p: loss(p, "pallas"))(scene.positions)
+    g_bvh = jax.grad(lambda p: loss(p, "bvh"))(scene.positions)
     g_dense = jax.grad(lambda p: loss(p, "dense"))(scene.positions)
-    assert np.isfinite(np.asarray(g_pallas)).all()
-    assert np.abs(np.asarray(g_pallas)).max() > 1e-6
-    np.testing.assert_allclose(np.asarray(g_pallas), np.asarray(g_dense),
+    assert np.isfinite(np.asarray(g_bvh)).all()
+    assert np.abs(np.asarray(g_bvh)).max() > 1e-6
+    np.testing.assert_allclose(np.asarray(g_bvh), np.asarray(g_dense),
                                rtol=1e-4, atol=1e-6)
 
 
@@ -144,17 +145,14 @@ def test_frame_grad_matches_fd_on_stable_pixels():
 
 
 def test_refit_accel_matches_host_tables():
-    """jnp refit reproduces the host-side float64 Woop/cluster build on a
-    well-conditioned mesh (degenerate slivers differ only in their
-    never-hit epsilon encoding, f32 vs f64 singularity thresholds)."""
+    """jnp refit of an unmoved scene reproduces the host-built node
+    bounds and kernel tables exactly, and stays exact under jit."""
     scene = mesh_mod.upload(flatten_models([procgen.cube()], pad_to=128))
-    refit = mesh_mod.refit_accel(scene)
-    np.testing.assert_allclose(np.asarray(refit.woop), np.asarray(scene.woop),
-                               rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(np.asarray(refit.cluster_min),
-                               np.asarray(scene.cluster_min), atol=1e-6)
-    np.testing.assert_allclose(np.asarray(refit.cluster_max),
-                               np.asarray(scene.cluster_max), atol=1e-6)
+    refit = jax.jit(mesh_mod.refit_accel)(scene)
+    for name in ("node_min", "node_max", "bvh_nodes", "bvh_tris"):
+        np.testing.assert_array_equal(np.asarray(getattr(refit, name)),
+                                      np.asarray(getattr(scene, name)),
+                                      err_msg=name)
 
 
 def test_inverse_rendering_recovers_perturbed_vertex():

@@ -131,18 +131,17 @@ def test_sharded_mesh_render_matches_single_device():
                                rtol=1e-5, atol=1e-6)
 
 
-def test_sharded_pallas_kernel_matches_single_device():
-    """The PRODUCTION Pallas traversal (cull + intersect pallas_call,
-    interpret mode on CPU) inside shard_map matches the unsharded dense
-    render — the flagship composition that was previously only exercised
-    single-device (r3 judge weak #4)."""
+def test_sharded_bvh_matches_single_device():
+    """A candidate-search traversal (the "bvh" walk; on a GPU the kernel
+    takes its place) inside shard_map matches the unsharded dense render:
+    the stop_gradient'd search and the refine both shard per ray."""
     from srt_tpu.models import mesh as mesh_mod
     from srt_tpu.scene import model_scene_lights
     from srt_tpu.utils import procgen
     from srt_tpu.utils.flatten import flatten_models
 
     scene = mesh_mod.upload(
-        flatten_models([procgen.uv_sphere(6, 8, radius=1.0)], pad_to=128))
+        flatten_models([procgen.uv_sphere(6, 8, radius=1.0)]))
     mesh = device_mesh(2, 1)
     cam = CameraConfig(width=16, height=8, origin=(0.0, 0.5, 4.0),
                        look_at=(0.0, 0.0, 0.0))
@@ -152,8 +151,7 @@ def test_sharded_pallas_kernel_matches_single_device():
     n_slots = rng_ops.total_slots(lights.count, cfg.max_depth + cfg.rr_bounces)
     uniforms = jnp.asarray(rng_ops.host_uniforms(11, n, n_slots))
 
-    make_hit = lambda s: mesh_mod.mesh_hit_fn(s, method="pallas",
-                                              kernel_tile=128)
+    make_hit = lambda s: mesh_mod.mesh_hit_fn(s, method="bvh")
     ref = pathtracer.trace_with_uniforms(
         mesh_mod.mesh_hit_fn(scene, method="dense"), lights, cam, cfg,
         uniforms

@@ -1,6 +1,6 @@
 """End-to-end sphere path tracing vs the numpy oracle.
 
-The TPU-build analog of the reference's CPU-reference-renderer cross-check
+The JAX-build analog of the reference's CPU-reference-renderer cross-check
 (SURVEY.md section 3.3/4): identical injected uniforms drive both renderers
 and images must agree to float tolerance.
 """

@@ -1,19 +1,19 @@
 #!/usr/bin/env python
-"""REAL multi-process multi-host exercise (SURVEY.md section 2.3 mandate).
+"""Multi-process multi-host exercise on the CPU (SURVEY.md section 2.3).
 
 Launches 2 OS processes, each a JAX 'host' with 4 virtual CPU devices,
 joined via ``jax.distributed.initialize`` on a localhost coordinator —
-the CPU-backend stand-in for a 2-host TPU pod (the same trick the tests
-use for multi-chip, extended to multi-PROCESS so the
+the CPU stand-in for a multi-host deployment (the same trick the tests
+use for multiple devices, extended to multiple PROCESSES so the
 ``process_allgather`` assembly branch and the process-aware tile
 assignment (``parallel/mesh.local_shard_bounds``) actually execute).
+Every child pins itself to the CPU, so the tool never opens a GPU.
 
 Each process renders only its own tile of a BVH-mesh scene
-(``parallel/multihost.render_multihost``), all-gathers the image, and
-reports per-process wall time; the parent verifies every process
-assembled the SAME image, that it matches a single-process render of the
-whole frame, and computes the scaling efficiency.  Results land in
-``tools/multihost_2proc.json`` (committed artifact).
+(``parallel/multihost.render_multihost``) and all-gathers the image; the
+parent verifies every process assembled the SAME image and that it
+matches a single-process render of the whole frame.  It checks
+correctness only: CPU wall times say nothing about device scaling.
 
 Usage:  python tools/multihost_2proc.py            # parent / driver
         python tools/multihost_2proc.py --proc I   # internal: child I
@@ -21,9 +21,10 @@ Usage:  python tools/multihost_2proc.py            # parent / driver
 
 import json
 import os
+import shutil
 import subprocess
 import sys
-import time
+import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -33,11 +34,8 @@ NPROC = 2
 DEV_PER_PROC = 4
 SIZE = (64, 32)          # W, H — small: CPU dense-mesh trace
 SEED = 11
-# Traversal strategy: "dense" (r3 artifact) or "pallas" — the latter runs
-# the PRODUCTION kernels (interpret mode on CPU) inside the 2-process
-# shard_map composition, closing the "assembly proof never exercised the
-# flagship kernels" gap (r3 judge weak #5).
-METHOD = os.environ.get("SRT_MH_METHOD", "dense")
+# Results pass between the processes through this directory.
+OUT_DIR_ENV = "SRT_MH_DIR"
 
 
 def _force_cpu(n_devices: int):
@@ -57,7 +55,7 @@ def _scene_setup():
     from srt_tpu.utils.procgen import uv_sphere
 
     scene = mesh_mod.upload(flatten_models(
-        [uv_sphere(12, 18)], pad_to=128 if METHOD == "pallas" else 1))
+        [uv_sphere(12, 18)]))
     lights = model_scene_lights()
     cam = CameraConfig(width=SIZE[0], height=SIZE[1],
                        origin=(0.0, 1.0, 5.0), look_at=(0.0, 0.0, 0.0))
@@ -86,37 +84,32 @@ def child(proc_id: int):
 
     def run(key):
         return render_multihost(
-            lambda s: mesh_mod.mesh_hit_fn(s, method=METHOD,
-                                           kernel_tile=128),
+            lambda s: mesh_mod.mesh_hit_fn(s, method="dense"),
             scene, lights, cam, cfg, key, mesh)
 
-    img = run(jax.random.key(SEED))          # warm-up/compile
-    t0 = time.perf_counter()
     img = run(jax.random.key(SEED))
-    dt = time.perf_counter() - t0
 
     import numpy as np
+    out_dir = os.environ[OUT_DIR_ENV]
     out = {
         "proc": proc_id,
-        "method": METHOD,
         "process_count": jax.process_count(),
         "local_devices": len(jax.local_devices()),
-        "tile_seconds": dt,
         "image_sum": float(np.asarray(img, np.float64).sum()),
         "image_sha": __import__("hashlib").sha256(
             np.ascontiguousarray(np.asarray(img)).tobytes()).hexdigest(),
     }
-    path = f"/tmp/srt_mh_proc{proc_id}.json"
-    with open(path, "w") as f:
+    with open(os.path.join(out_dir, f"proc{proc_id}.json"), "w") as f:
         json.dump(out, f)
     # Proc 0 also dumps the image for the parent's reference comparison.
     if proc_id == 0:
-        np.save("/tmp/srt_mh_img.npy", np.asarray(img))
-    print(f"proc {proc_id}: ok ({dt*1e3:.0f} ms/frame local tile)")
+        np.save(os.path.join(out_dir, "img.npy"), np.asarray(img))
+    print(f"proc {proc_id}: ok")
 
 
 def parent():
-    env = dict(os.environ)
+    out_dir = tempfile.mkdtemp(prefix="srt_mh_")
+    env = dict(os.environ, **{OUT_DIR_ENV: out_dir})
     procs = [
         subprocess.Popen([sys.executable, os.path.abspath(__file__),
                           "--proc", str(i)], env=env)
@@ -126,7 +119,7 @@ def parent():
     assert all(rc == 0 for rc in rcs), f"child exit codes: {rcs}"
 
     import numpy as np
-    results = [json.load(open(f"/tmp/srt_mh_proc{i}.json"))
+    results = [json.load(open(os.path.join(out_dir, f"proc{i}.json")))
                for i in range(NPROC)]
     assert all(r["process_count"] == NPROC for r in results)
     # Every process must assemble the SAME full image.
@@ -144,54 +137,28 @@ def parent():
 
     def run(key):
         return render_multihost(
-            lambda s: mesh_mod.mesh_hit_fn(s, method=METHOD,
-                                           kernel_tile=128),
+            lambda s: mesh_mod.mesh_hit_fn(s, method="dense"),
             scene, lights, cam, cfg, key, mesh)
 
     ref = run(jax.random.key(SEED))
-    t0 = time.perf_counter()
-    ref = run(jax.random.key(SEED))
-    t1 = time.perf_counter() - t0
-
-    img = np.load("/tmp/srt_mh_img.npy")
+    img = np.load(os.path.join(out_dir, "img.npy"))
     max_diff = float(np.abs(np.asarray(ref) - img).max())
     bit_equal = bool((np.asarray(ref) == img).all())
-
-    t2 = max(r["tile_seconds"] for r in results)
-    n = cam.width * cam.height
-    # rays/s scaling: each process traced n/2 primary paths in t2 vs one
-    # process tracing n in t1 -> efficiency = t1 / (2 * t2).
-    efficiency = t1 / (NPROC * t2)
     report = {
-        "method": METHOD,
         "processes": NPROC,
         "devices_per_process": DEV_PER_PROC,
-        "note": ("scaling_efficiency on this box is bounded by CPU "
-                 "oversubscription (2 processes x 4 virtual devices on a "
-                 f"{os.cpu_count()}-core host), not by the framework; the "
-                 "artifact's point is that the process_allgather assembly "
-                 "and process-aware tile ownership run multi-process and "
-                 "assemble bit-identically"),
-        "host_cpus": os.cpu_count(),
         "scene": "uv_sphere(12,18) BVH mesh, dense strategy",
         "image": f"{cam.width}x{cam.height}",
         "bit_equal_to_single_process": bit_equal,
         "max_abs_diff": max_diff,
         "assembled_identically_on_all_processes": True,
-        "single_process_frame_s": t1,
-        "multi_process_tile_s": t2,
-        "scaling_efficiency": efficiency,
         "per_process": results,
     }
-    art = ("multihost_2proc.json" if METHOD == "dense"
-           else f"multihost_2proc_{METHOD}.json")
-    out_path = os.path.join(REPO, "tools", art)
-    with open(out_path, "w") as f:
-        json.dump(report, f, indent=1)
     print(json.dumps(report, indent=1))
+    shutil.rmtree(out_dir)
     assert bit_equal or max_diff < 1e-6, \
         f"multi-process image diverged: {max_diff}"
-    print(f"multihost_2proc: OK -> {out_path}")
+    print("multihost_2proc: OK")
 
 
 if __name__ == "__main__":

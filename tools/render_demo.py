@@ -1,10 +1,11 @@
 #!/usr/bin/env python
 """Render the two flagship scenes to PNG — the one-command visual check.
 
-Runs on whatever backend JAX resolves (pallas kernels on TPU, dense on
-CPU).  Writes rubik.png (the reference's bundled asset when the mirror is
+Runs on whatever backend JAX resolves, with its traversal strategy
+(``mesh.default_method``: the BVH kernel on a GPU, dense on the CPU).
+Writes rubik.png (the reference's bundled asset when the mirror is
 present) and highpoly.png (the ~102k-triangle Airplane stand-in,
-BASELINE config 4) into --out (default /tmp/srt_demo).
+BASELINE config 4) into --out (default chiprun_out/demo in the checkout).
 """
 
 import argparse
@@ -17,7 +18,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="/tmp/srt_demo")
+    ap.add_argument("--out", default=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "chiprun_out", "demo"))
     ap.add_argument("--size", type=int, default=512)
     ap.add_argument("--spp", type=int, default=4)
     args = ap.parse_args()
@@ -34,7 +37,7 @@ def main():
     from srt_tpu.utils.flatten import flatten_models
     from srt_tpu.utils.procgen import rubik_grid, uv_sphere
 
-    method = "pallas" if jax.default_backend() == "tpu" else "dense"
+    method = mesh_mod.default_method()
     lights = model_scene_lights()
 
     ref = "/root/reference/objects/Rubik/Rubik.obj"
@@ -50,12 +53,10 @@ def main():
          (0.0, 1.0, 5.0), (0.0, 0.0, 0.0)),
     ]
     for name, mesh_data, origin, look_at in scenes:
-        scene = mesh_mod.upload(flatten_models(
-            [mesh_data], pad_to=128 if method == "pallas" else 1))
+        scene = mesh_mod.upload(flatten_models([mesh_data]))
         cam = CameraConfig(width=args.size, height=args.size,
                            origin=origin, look_at=look_at)
-        cfg = RenderConfig(max_depth=4, rr_bounces=0, spp=args.spp,
-                           sort_bounces=(method == "pallas"))
+        cfg = RenderConfig(max_depth=4, rr_bounces=0, spp=args.spp)
         f = jax.jit(lambda k, s=scene: pathtracer.render(
             mesh_mod.mesh_hit_fn(s, method=method, ray_tile=4096),
             lights, cam, cfg, k))
